@@ -1,29 +1,27 @@
 # tpufft runtime image (role of the reference's Dockerfile/docker-compose:
-# a reproducible environment for tests and benchmarks). On a TPU VM the
-# jax[tpu] wheel picks up the libtpu runtime; on CPU-only hosts the test
-# suite runs via Pallas interpret mode (tests/conftest.py pins CPU anyway).
-FROM python:3.12-slim
+# a reproducible environment for tests and benchmarks). Built on a CUDA
+# base so JAX's CUDA wheel finds the driver libraries; the same image runs
+# the CPU test suite (tests/conftest.py pins the CPU) and, on a host with an
+# NVIDIA GPU (docker run --gpus all), chip_smoke.py and the benchmarks.
+FROM nvidia/cuda:12.4.1-cudnn-runtime-ubuntu22.04
 
 RUN apt-get update && apt-get install -y --no-install-recommends \
-        g++ make \
+        python3 python3-pip g++ make libfftw3-dev \
     && rm -rf /var/lib/apt/lists/*
 
 WORKDIR /opt/tpufft
-COPY pyproject.toml README.md ./
+COPY pyproject.toml setup.py MANIFEST.in README.md ./
 COPY tpufft ./tpufft
 COPY native ./native
 COPY tests ./tests
-COPY bench.py bench_suite.py profile.py ./
+COPY harness.py bench.py bench_suite.py profile.py chip_smoke.py \
+     __graft_entry__.py ./
 
-# CPU image by default; for TPU VMs use:  pip install 'jax[tpu]' -f \
-#   https://storage.googleapis.com/jax-releases/libtpu_releases.html
-# libfftw3 + pyfftw: the FFTW_MEASURE baseline column of bench_suite.py
-# (matches the reference's benchmark-cpu-others/benchmark.py:52-57 harness;
-# bench_suite emits the column whenever pyfftw imports).
-RUN apt-get update && apt-get install -y --no-install-recommends \
-        libfftw3-dev \
-    && rm -rf /var/lib/apt/lists/*
-RUN pip install --no-cache-dir jax numpy scipy pytest pyfftw && \
+# jax[cuda12] brings the CUDA plugin; pyfftw adds the FFTW_MEASURE column
+# of bench_suite.py --device cpu (the reference's
+# benchmark-cpu-others/benchmark.py:52-57 harness).
+RUN pip install --no-cache-dir "jax[cuda12]" numpy scipy pytest \
+        pytest-xdist pyfftw && \
     pip install --no-cache-dir -e .
 
-CMD ["python", "-m", "pytest", "tests/", "-q"]
+CMD ["python3", "-m", "pytest", "tests/", "-q"]

@@ -1,14 +1,14 @@
-"""End-to-end example: differentiable spectral low-pass filtering on TPU.
+"""End-to-end example: differentiable spectral low-pass filtering.
 
 Shows the four API styles:
 1. scipy-like (complex arrays at the boundary),
-2. the fused filter plan (fft -> H -> ifft collapsed into ONE MXU pass),
-3. device-native SplitComplex planes inside jax.jit,
-4. multi-chip (batch-sharded + distributed transform axis).
+2. the filter plan (fft -> H -> ifft collapsed into ONE dense matmul),
+3. SplitComplex planes inside jax.jit,
+4. multi-device (batch-sharded + distributed transform axis).
 
 Run:  python examples/spectral_filter.py          (uses default backend)
-      JAX_PLATFORMS=cpu with 8 virtual devices for the multi-chip part —
-      see tests/conftest.py for the pinning caveat on this machine.
+      On the CPU, give it 8 virtual devices for the multi-device part:
+      XLA_FLAGS=--xla_force_host_platform_device_count=8.
 """
 
 import numpy as np
@@ -71,7 +71,7 @@ def device_native_jit():
     im = jnp.zeros_like(re)
     outr, outi = filt(re, im)
 
-    # it's differentiable end-to-end (custom VJPs over the Pallas kernels)
+    # it's differentiable end-to-end (plain jnp, ordinary autodiff)
     def loss(re):
         r, i = filt(re, im)
         return jnp.sum(r ** 2 + i ** 2)

@@ -5,10 +5,10 @@
 // _CPUPlan/_run_cpu_nd_fft) plus its native benchmark harness
 // (cufft-benchmark-main/cufft_benchmark.cu): a host-side engine used as
 // (a) the CPU execution backend behind tpufft.native, and (b) the
-// vendor-independent baseline the TPU numbers are compared against.
+// vendor-independent host baseline the device numbers are compared against.
 //
 // Design (not a translation): split re/im planes end-to-end (matching the
-// TPU data model instead of interleaved complex), per-length plan cache with
+// library's SplitComplex data model instead of interleaved complex), per-length plan cache with
 // host-precomputed double-precision twiddles, Stockham ping-pong stages in
 // contiguous scratch, OpenMP over batch rows, strided axes handled by
 // gather->transform->scatter through thread-local scratch.
@@ -335,7 +335,7 @@ struct VecOf {
 
 // Batch-vectorized transform: V transforms at once, data laid out (n, V)
 // so every stage's inner loop runs over the V contiguous "lanes" — the CPU
-// SIMD mirror of the TPU kernel's lane-batch layout.
+// SIMD counterpart of a batch-minor layout.
 //
 // Radix-2/4/8 stages run as constant-folded butterflies (pure vector
 // adds, ±i plane swaps, one 1/sqrt2 constant — the phasor-specialization
@@ -1350,7 +1350,7 @@ int fft_nd(const T* in_re, const T* in_im, T* out_re, T* out_im,
 }
 
 // Interleaved-complex <-> split-plane conversion. The engine's data model
-// is split planes (the same contract as the TPU path's SplitComplex), but
+// is split planes (the same contract as the jnp path's SplitComplex), but
 // numpy users hand us interleaved complex buffers; converting through
 // numpy costs FOUR strided passes (x.real copy, x.imag copy, out.real
 // assign, out.imag assign — measured 327 + 381 ms around a ~700 ms

@@ -1,87 +1,95 @@
-"""Bluestein (chirp-z) fallback: any-length transforms through the fused
-kernels.
+"""Bluestein (chirp-z) route: any-length transforms over the jnp Stockham.
 
-Lengths whose factorizations exceed the MXU envelope (primes > 128, or
-composites with an oversized prime factor) cannot use the direct or
-two-pass kernel paths; the chirp-z identity re-expresses them as two
-kernel FFTs of a 128-aligned fast length m >= 2n-1. The reference's
-planner stops at prime 97 (fft/fft/fft.mojo:83-104); this keeps such
-lengths on the accelerator path instead of the XLA fallback.
+An axis whose largest prime factor exceeds execute.BLUESTEIN_MIN_PRIME
+runs as a circular convolution at a 7-smooth length m >= 2n - 1 instead
+of one dense p-point Stockham stage. The reference's planner stops at
+prime 97 (fft/fft/fft.mojo:83-104); this keeps such lengths O(m log m).
+
+Tests marked with the ``forced`` fixture lower the threshold so short
+primes take the route too (cheap coverage of the same code); the rest run
+the default dispatch at lengths above the measured crossover.
 """
 
 import numpy as np
 import pytest
 
+import jax
+import jax.numpy as jnp
+
 import tpufft
-from tpufft import PlanConfig
-from tpufft.execute import _bluestein_ok
+from tpufft import PlanConfig, SplitComplex, execute
+from tpufft.execute import bluestein_ok
 from conftest import assert_spectrum_close
 
-CFG = PlanConfig(interpret=True, backend="pallas", lane_block=128)
+CFG = PlanConfig()
 
 
-def _x(rng, shape):
+@pytest.fixture
+def forced(monkeypatch):
+    """Route every prime factor > 100 through Bluestein (plans traced
+    under another threshold must not be reused, hence the cache clears)."""
+    tpufft.api._cached_plan.cache_clear()
+    monkeypatch.setattr(execute, "BLUESTEIN_MIN_PRIME", 100)
+    yield
+    tpufft.api._cached_plan.cache_clear()
+
+
+def _x(rng, shape, dtype=np.complex64):
     return (rng.standard_normal(shape)
-            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+            + 1j * rng.standard_normal(shape)).astype(dtype)
 
 
 @pytest.mark.parametrize("n", [131, 257, 262, 1031])
-def test_prime_lengths_forward(n, rng):
-    """Prime (or prime-heavy) lengths: the direct kernel planner returns
-    None, the two-pass has no valid split, Bluestein must cover (forced
-    pallas backend — auto mode only dispatches here for primes > 1024,
-    where the XLA dense-stage path stops being faster)."""
-    from tpufft.kernels.mxu_fft import kernel_factors
-    from tpufft.execute import _split_large
-    assert kernel_factors(n) is None
-    assert _split_large(n, np.float32, CFG) is None
-    assert _bluestein_ok(n, np.float32, CFG)
+def test_prime_lengths_forward(n, rng, forced):
+    """Prime (or prime-heavy) lengths through Bluestein match NumPy."""
+    assert bluestein_ok(n)
     x = _x(rng, (4, n))
     got = np.asarray(tpufft.fft(x, config=CFG))
     assert_spectrum_close(got, np.fft.fft(x), np.complex64)
 
 
 def test_auto_mode_threshold():
-    """Auto mode keeps primes <= 1024 on the XLA dense-stage path (measured
-    faster there) and routes bigger primes through Bluestein."""
-    auto = PlanConfig(interpret=True, backend="auto")
-    assert not _bluestein_ok(131, np.float32, auto)
-    assert not _bluestein_ok(1021, np.float32, auto)
-    assert _bluestein_ok(2053, np.float32, auto)
-    assert _bluestein_ok(4099, np.float32, auto)
+    """The default keeps primes up to the measured crossover (4099) on the
+    dense-stage path and routes bigger prime factors through Bluestein."""
+    assert execute.BLUESTEIN_MIN_PRIME == 4099
+    assert not bluestein_ok(131)
+    assert not bluestein_ok(1021)
+    assert not bluestein_ok(4099)
+    assert not bluestein_ok(4)
+    assert bluestein_ok(4111)
+    assert bluestein_ok(2 * 4111)
+    assert bluestein_ok(65537)
 
 
-def test_prime_length_inverse_norm(rng):
+def test_prime_length_inverse_norm(rng, forced):
     x = _x(rng, (3, 131))
     got = np.asarray(tpufft.ifft(x, norm="ortho", config=CFG))
     assert_spectrum_close(got, np.fft.ifft(x, norm="ortho"), np.complex64)
 
 
-def test_prime_length_non_minor_axis(rng):
+def test_prime_length_non_minor_axis(rng, forced):
     x = _x(rng, (2, 131, 16))
     got = np.asarray(tpufft.fftn(x, axes=(1,), config=CFG))
     assert_spectrum_close(got, np.fft.fft(x, axis=1), np.complex64)
 
 
-def test_prime_roundtrip(rng):
+def test_prime_roundtrip(rng, forced):
     x = _x(rng, (2, 257))
     y = np.asarray(tpufft.ifft(tpufft.fft(x, config=CFG), config=CFG))
     assert_spectrum_close(y, x, np.complex64)
 
 
 def test_prime_backend_pallas_no_error(rng):
-    """backend='pallas' no longer rejects unfactorable lengths — Bluestein
-    IS a kernel path."""
-    x = _x(rng, (2, 131))
-    got = np.asarray(tpufft.fft(x, config=CFG))
+    """A prime above the crossover runs with the default config: no
+    backend option is needed (or accepted) to reach Bluestein."""
+    x = _x(rng, (2, 4111))
+    got = np.asarray(tpufft.fft(x))
     assert_spectrum_close(got, np.fft.fft(x), np.complex64)
+    with pytest.raises(TypeError, match="no longer takes backend"):
+        PlanConfig(backend="pallas")
 
 
-def test_grad_through_bluestein(rng):
-    import jax
-    import jax.numpy as jnp
-    from tpufft import SplitComplex
-
+def test_grad_through_bluestein(rng, forced):
     re = jnp.asarray(rng.standard_normal((2, 131)), jnp.float32)
     im = jnp.asarray(rng.standard_normal((2, 131)), jnp.float32)
     plan = tpufft.plan_fft((2, 131), jnp.complex64, axes=(-1,), config=CFG)
@@ -101,22 +109,18 @@ def test_grad_through_bluestein(rng):
                                    rtol=5e-3, atol=5e-3)
 
 
-def test_kronecker_cofactor_falls_back(rng):
-    """n whose only split has a Kronecker-only co-factor (1859 = 143*13,
-    143 = 11*13) must take the flat two-pass, not crash the nd planner."""
+def test_kronecker_cofactor_falls_back(rng, forced):
+    """1859 = 11 * 13^2: a composite whose factors stay below the forced
+    threshold runs the plain Stockham, not Bluestein."""
+    assert not bluestein_ok(1859)
     x = _x(rng, (2, 3, 1859))
-    cfg = PlanConfig(interpret=True, backend="auto", lane_block=128)
-    got = np.asarray(tpufft.fft(x, config=cfg))
+    got = np.asarray(tpufft.fft(x, config=CFG))
     assert_spectrum_close(got, np.fft.fft(x), np.complex64)
 
 
-def test_bluestein_preserves_bf16_planes(rng):
+def test_bluestein_preserves_bf16_planes(rng, forced):
     """bf16-plane contract holds through Bluestein: bf16 in -> bf16 out."""
-    import jax.numpy as jnp
-    from tpufft import SplitComplex
-
-    cfg = PlanConfig(interpret=True, backend="pallas", lane_block=128,
-                     plane_dtype="bfloat16")
+    cfg = PlanConfig(plane_dtype="bfloat16")
     x = _x(rng, (2, 131))
     sc = SplitComplex(jnp.asarray(x.real, jnp.bfloat16),
                       jnp.asarray(x.imag, jnp.bfloat16))
@@ -127,3 +131,69 @@ def test_bluestein_preserves_bf16_planes(rng):
     ref = np.fft.fft(x)
     scale = max(1.0, float(np.max(np.abs(ref))))
     assert np.max(np.abs(out.numpy() - ref)) / scale < 3e-2
+
+
+def test_chirp_tables_follow_plane_dtype():
+    """The chirps are float64 on the host and cast to the plane dtype at
+    the use site, so c128 plans keep f64 chirps (they used to be f32)."""
+    tables = execute._bluestein_tables(4111, 8232, False, 1.0)
+    assert all(t.dtype == np.float64 for t in tables)
+    jaxpr = jax.make_jaxpr(lambda a, b: execute.fft_axis(
+        a, b, 1, (4111,), inverse=False, scale=1.0))(
+        jnp.zeros((1, 4111), jnp.float64), jnp.zeros((1, 4111), jnp.float64))
+    assert "f32" not in str(jaxpr)
+
+
+# ---------------------------------------------------------------------------
+# Default dispatch above the crossover: fft / ifft / rfft / irfft x c64 /
+# c128. Tolerances are the suite's contract (1e-3 c64, 1e-6 c128).
+
+_LONG = [4111, 8191, 2 * 4111, 3 * 4111, 65537]
+_KINDS = ["fft", "ifft", "rfft", "irfft"]
+_DTYPES = [np.complex64, np.complex128]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["c64", "c128"])
+@pytest.mark.parametrize("kind", _KINDS)
+@pytest.mark.parametrize("n", _LONG)
+def test_default_route_matches_numpy(n, kind, dtype, rng):
+    assert bluestein_ok(n if kind != "irfft" else n)
+    rdt = np.float32 if dtype == np.complex64 else np.float64
+    if kind in ("fft", "ifft"):
+        x = _x(rng, (2, n), dtype)
+        got = getattr(tpufft, kind)(x)
+        ref = getattr(np.fft, kind)(x.astype(np.complex128))
+    elif kind == "rfft":
+        x = rng.standard_normal((2, n)).astype(rdt)
+        got = tpufft.rfft(x)
+        ref = np.fft.rfft(x.astype(np.float64))
+    else:
+        spec = np.fft.rfft(rng.standard_normal((2, n)))
+        got = tpufft.irfft(spec.astype(dtype), n=n)
+        ref = np.fft.irfft(spec, n=n)
+    assert np.asarray(got).shape == ref.shape
+    assert_spectrum_close(got, ref, dtype)
+
+
+# ---------------------------------------------------------------------------
+# The same route at short lengths (forced threshold): lengths x transforms
+# x dtypes x norms.
+
+_SHORT = [131, 257, 262, 3 * 137, 1031]
+
+
+@pytest.mark.parametrize("norm", [None, "ortho", "forward"])
+@pytest.mark.parametrize("dtype", _DTYPES, ids=["c64", "c128"])
+@pytest.mark.parametrize("kind", ["fft", "ifft", "rfft"])
+@pytest.mark.parametrize("n", _SHORT)
+def test_forced_route_matches_numpy(n, kind, dtype, norm, rng, forced):
+    assert bluestein_ok(n)
+    rdt = np.float32 if dtype == np.complex64 else np.float64
+    if kind == "rfft":
+        x = rng.standard_normal((3, n)).astype(rdt)
+    else:
+        x = _x(rng, (3, n), dtype)
+    got = getattr(tpufft, kind)(x, norm=norm)
+    ref = getattr(np.fft, kind)(x.astype(np.complex128 if kind != "rfft"
+                                         else np.float64), norm=norm)
+    assert_spectrum_close(got, ref, dtype)

@@ -1,4 +1,4 @@
-"""Numerical edge-value behavior through the kernel paths.
+"""Numerical edge-value behavior through the transform paths.
 
 The reference's tests only use well-scaled integer series; production
 pipelines see zeros, huge magnitudes, denormals, and non-finite values.
@@ -14,7 +14,7 @@ import tpufft
 from tpufft import PlanConfig
 from conftest import assert_spectrum_close
 
-CFG = PlanConfig(interpret=True, backend="pallas", lane_block=128)
+CFG = PlanConfig()
 
 
 def test_zero_input_is_zero_output():

@@ -1,5 +1,5 @@
 """Seeded random-configuration fuzz: arbitrary shapes/axes/kinds/norms
-against the numpy oracle, through the public API (both backends)."""
+against the numpy oracle, through the public API (c64 and c128)."""
 
 import numpy as np
 import pytest
@@ -8,10 +8,9 @@ import tpufft
 from tpufft import PlanConfig
 from conftest import assert_spectrum_close
 
-CFGS = {
-    "xla": PlanConfig(backend="xla"),
-    "kernel-interpret": PlanConfig(interpret=True, backend="auto",
-                                   lane_block=128),
+DTYPES = {
+    "c64": (np.complex64, np.float32),
+    "c128": (np.complex128, np.float64),
 }
 
 
@@ -25,30 +24,29 @@ def _random_case(rng):
     return shape, axes, None if norm is None else str(norm), str(kind)
 
 
-@pytest.mark.parametrize("backend", sorted(CFGS))
+@pytest.mark.parametrize("backend", sorted(DTYPES))
 @pytest.mark.parametrize("case", range(25))
 def test_fuzz_against_numpy(case, backend, rng):
     crng = np.random.default_rng(9000 + case)
     shape, axes, norm, kind = _random_case(crng)
-    cfg = CFGS[backend]
+    cdt, rdt = DTYPES[backend]
     if kind == "c2c":
         x = (crng.standard_normal(shape)
-             + 1j * crng.standard_normal(shape)).astype(np.complex64)
-        got = tpufft.fftn(x, axes=axes, norm=norm, config=cfg)
+             + 1j * crng.standard_normal(shape)).astype(cdt)
+        got = tpufft.fftn(x, axes=axes, norm=norm)
         ref = np.fft.fftn(x, axes=axes, norm=norm)
     elif kind == "r2c":
-        x = crng.standard_normal(shape).astype(np.float32)
-        got = tpufft.rfftn(x, axes=axes, norm=norm, config=cfg)
+        x = crng.standard_normal(shape).astype(rdt)
+        got = tpufft.rfftn(x, axes=axes, norm=norm)
         ref = np.fft.rfftn(x.astype(np.float64), axes=axes, norm=norm)
     else:  # c2r: build a packed spectrum of a real signal
         real = crng.standard_normal(shape)
         spec = np.fft.rfftn(real, axes=axes)
         s = tuple(shape[a] for a in axes)
-        got = tpufft.irfftn(spec.astype(np.complex64), s=s, axes=axes,
-                            norm=norm, config=cfg)
+        got = tpufft.irfftn(spec.astype(cdt), s=s, axes=axes, norm=norm)
         ref = np.fft.irfftn(spec, s=s, axes=axes, norm=norm)
     assert np.asarray(got).shape == ref.shape, (shape, axes, kind)
-    assert_spectrum_close(got, ref, np.complex64)
+    assert_spectrum_close(got, ref, cdt)
 
 
 @pytest.mark.parametrize("case", range(15))
@@ -60,7 +58,7 @@ def test_fuzz_split_roundtrip(case, rng):
 
     crng = np.random.default_rng(7000 + case)
     shape, axes, norm, _ = _random_case(crng)
-    cfg = CFGS["kernel-interpret"]
+    cfg = PlanConfig()
     x = (crng.standard_normal(shape)
          + 1j * crng.standard_normal(shape)).astype(np.complex64)
     sc = SplitComplex(jnp.asarray(x.real.copy()), jnp.asarray(x.imag.copy()))
@@ -80,33 +78,32 @@ def test_fuzz_split_roundtrip(case, rng):
                           np.fft.fftn(y, axes=axes, norm=norm), np.complex64)
 
 
-# Round-2 paths: dispatch-diverse length pools so every fuzz case lands on
-# one of the new kernels (sublane two-pass, Bluestein, right-multiply pair,
-# nd-inner) rather than only the tiny-length small-W path.
+# Dispatch-diverse length pool: every fuzz case lands on a prime stage, a
+# smooth Stockham, or the Bluestein route rather than only tiny lengths.
 _LENGTH_POOL = [
-    93,      # small prime-composite (dense W)
-    131,     # prime > 128 (Bluestein under forced pallas)
-    262,     # 2*131 (Bluestein)
-    384,     # four_step_bf
-    48, 64,  # narrow pair / nd lanes
+    93,      # small prime-composite (dense 31-point stage)
+    131,     # prime, one dense stage
+    262,     # 2*131
+    384,     # smooth
+    48, 64,  # short smooth axes
+    4111,    # prime above execute.BLUESTEIN_MIN_PRIME (Bluestein)
 ]
 
 
 @pytest.mark.parametrize("case", range(12))
 def test_fuzz_dispatch_paths(case, rng):
-    """Random shapes drawn from dispatch-critical lengths, forced through
-    the fused-kernel path (interpret) against the numpy oracle."""
+    """Random shapes drawn from dispatch-critical lengths against the
+    numpy oracle."""
     crng = np.random.default_rng(4000 + case)
-    cfg = PlanConfig(interpret=True, backend="pallas", lane_block=128)
     ndim = int(crng.integers(2, 4))
     shape = tuple(int(crng.choice(_LENGTH_POOL)) for _ in range(ndim))
-    # keep the array small enough for interpret mode
+    # keep the array small
     while np.prod(shape) > 2_000_000:
         shape = shape[1:]
     axes = tuple(range(1, len(shape))) if len(shape) > 1 else (0,)
     x = (crng.standard_normal(shape)
          + 1j * crng.standard_normal(shape)).astype(np.complex64)
-    got = tpufft.fftn(x, axes=axes, config=cfg)
+    got = tpufft.fftn(x, axes=axes)
     ref = np.fft.fftn(x, axes=axes)
     assert_spectrum_close(got, ref, np.complex64)
 
@@ -119,8 +116,7 @@ def test_fuzz_bf16_roundtrip(case, rng):
     from tpufft import SplitComplex
 
     crng = np.random.default_rng(5000 + case)
-    cfg = PlanConfig(interpret=True, backend="pallas", lane_block=128,
-                     plane_dtype="bfloat16")
+    cfg = PlanConfig(plane_dtype="bfloat16")
     shape, axes, norm, _ = _random_case(crng)
     x = (crng.standard_normal(shape)
          + 1j * crng.standard_normal(shape)).astype(np.complex64)

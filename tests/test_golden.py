@@ -11,19 +11,24 @@ import numpy as np
 import pytest
 
 import tpufft
-from tpufft import PlanConfig
 from tpufft.planner import default_bases
 
 from conftest import assert_spectrum_close
 from golden_data import GOLDEN_SERIES
 
-# The same corpus runs on BOTH execution paths (round-2 VERDICT weak #4:
-# golden vectors only ever exercised the XLA path). All golden lengths are
-# <= 128, so the kernel config dispatches every series to the small dense-W
-# Pallas kernel in interpret mode; c64 only — the kernel tier is f32.
-CFG_DEFAULT = None
-CFG_KERNEL = PlanConfig(interpret=True, backend="pallas", lane_block=128)
-PATHS = [("default", CFG_DEFAULT), ("kernel-interpret", CFG_KERNEL)]
+# The same corpus runs through both input forms of the public API: an
+# ordinary complex array, and SplitComplex planes (the form jitted and
+# sharded pipelines pass along).
+PATHS = [("default", "array"), ("split-planes", "split")]
+
+
+def _call(fn, x, form, **kw):
+    """fn(x) with x as an array or as SplitComplex planes; numpy out."""
+    if form == "split":
+        out = fn(tpufft.SplitComplex.from_array(x), **kw)
+        assert isinstance(out, tpufft.SplitComplex)
+        return out.numpy()
+    return np.asarray(fn(x, **kw))
 
 # Decomposition sweep, after the reference's per-length base lists
 # (fft/tests.mojo:274-371): every length is tested under multiple orderings.
@@ -51,47 +56,41 @@ def _series(n):
     return [np.asarray(s, np.float64) for s in GOLDEN_SERIES[n]]
 
 
-@pytest.mark.parametrize("path,cfg", PATHS, ids=[p[0] for p in PATHS])
+@pytest.mark.parametrize("path,form", PATHS, ids=[p[0] for p in PATHS])
 @pytest.mark.parametrize("n", sorted(GOLDEN_SERIES))
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
-def test_fft_1d_golden(n, dtype, path, cfg):
+def test_fft_1d_golden(n, dtype, path, form):
     """Forward FFT of every golden series matches the float64 DFT oracle."""
-    if path == "kernel-interpret" and dtype == np.complex128:
-        pytest.skip("kernel path is the f32/c64 tier")
     for series in _series(n):
         expected = np.fft.fft(series)
-        got = tpufft.fft(series.astype(dtype), config=cfg)
-        assert np.asarray(got).dtype == np.dtype(dtype)
+        got = _call(tpufft.fft, series.astype(dtype), form)
+        assert got.dtype == np.dtype(dtype)
         assert_spectrum_close(got, expected, dtype)
 
 
-@pytest.mark.parametrize("path,cfg", PATHS, ids=[p[0] for p in PATHS])
+@pytest.mark.parametrize("path,form", PATHS, ids=[p[0] for p in PATHS])
 @pytest.mark.parametrize("n", sorted(GOLDEN_SERIES))
 @pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
-def test_ifft_1d_golden(n, dtype, path, cfg):
+def test_ifft_1d_golden(n, dtype, path, form):
     """Inverse of the golden spectrum recovers the original real series
     (reference: _eval inverse branch, fft/tests.mojo:129-138)."""
-    if path == "kernel-interpret" and dtype == np.complex128:
-        pytest.skip("kernel path is the f32/c64 tier")
     for series in _series(n):
         spectrum = np.fft.fft(series).astype(dtype)
-        got = tpufft.ifft(spectrum, config=cfg)
+        got = _call(tpufft.ifft, spectrum, form)
         assert_spectrum_close(got, series.astype(np.complex128), dtype)
 
 
-@pytest.mark.parametrize("path,cfg", PATHS, ids=[p[0] for p in PATHS])
+@pytest.mark.parametrize("path,form", PATHS, ids=[p[0] for p in PATHS])
 @pytest.mark.parametrize("n", sorted(DECOMPOSITIONS))
-def test_fft_decomposition_sweep(n, path, cfg):
+def test_fft_decomposition_sweep(n, path, form):
     """Same spectrum out of every radix factorization of the same length."""
     for series in _series(n):
         expected = np.fft.fft(series)
         for bases in DECOMPOSITIONS[n]:
-            if path == "default":
-                got = tpufft.fft(series.astype(np.complex128), bases=[bases])
-                assert_spectrum_close(got, expected, np.complex128)
-            got32 = tpufft.fft(series.astype(np.complex64), bases=[bases],
-                               config=cfg)
-            assert_spectrum_close(got32, expected, np.complex64)
+            for dtype in (np.complex128, np.complex64):
+                got = _call(tpufft.fft, series.astype(dtype), form,
+                            bases=[bases])
+                assert_spectrum_close(got, expected, dtype)
 
 
 @pytest.mark.parametrize("n", [2, 3, 7, 31, 93, 97, 101, 127])

@@ -1,7 +1,7 @@
 """Multi-chip path tests on the virtual 8-device CPU mesh.
 
 The reference has no distributed anything (SURVEY.md §2 checklist); these
-cover the TPU-native extension: batch sharding (DP) and the Bailey four-step
+cover the multi-device extension: batch sharding (DP) and the Bailey four-step
 distributed-axis FFT (SP) with its all_to_all exchanges.
 """
 
@@ -119,13 +119,11 @@ def test_fftn_distributed(rng):
 
 
 def test_distributed_through_fused_kernel(rng):
-    """The per-shard transforms must route through execute.fft_axis so they
-    hit the fused MXU kernel on TPU (VERDICT round-1 weak #3). Forcing
-    backend='pallas' in interpret mode proves the kernel path is what runs
-    (it raises if any local transform falls back to XLA)."""
+    """The per-shard transforms route through execute.fft_axis with the
+    plan config's radix cap; a radix-4 planner gives the same spectrum."""
     from tpufft import PlanConfig
 
-    cfg = PlanConfig(backend="pallas", interpret=True)
+    cfg = PlanConfig(max_radix=4)
     mesh = _mesh((4,), ("sp",))
     x = (rng.standard_normal((2, 256)) + 1j * rng.standard_normal((2, 256)))
     out = fft_distributed(_split(x), mesh, axis_name="sp", config=cfg)
@@ -138,7 +136,7 @@ def test_distributed_through_fused_kernel(rng):
 def test_fftn_distributed_kernel_config(rng):
     from tpufft import PlanConfig
 
-    cfg = PlanConfig(backend="pallas", interpret=True)
+    cfg = PlanConfig(max_radix=4)
     mesh = _mesh((4,), ("sp",))
     x = (rng.standard_normal((2, 16, 256))
          + 1j * rng.standard_normal((2, 16, 256)))
@@ -151,12 +149,11 @@ def test_fftn_distributed_kernel_config(rng):
 
 def test_distributed_bf16_planes(rng):
     """bf16 plane storage composes with the sharded four-step: planes stay
-    bf16 through the collectives (halved ICI traffic on real meshes)."""
+    bf16 through the collectives (halved exchange traffic)."""
     import jax.numpy as jnp
     from tpufft import PlanConfig, SplitComplex
 
-    cfg = PlanConfig(backend="pallas", interpret=True,
-                     plane_dtype="bfloat16")
+    cfg = PlanConfig(plane_dtype="bfloat16")
     mesh = _mesh((4,), ("sp",))
     x = (rng.standard_normal((2, 256)) + 1j * rng.standard_normal((2, 256)))
     sc = SplitComplex(jnp.asarray(x.real, jnp.bfloat16),
@@ -341,3 +338,24 @@ def test_distributed_f64_keeps_f64_tier(rng):
     ref = np.fft.fft(x)
     err = np.max(np.abs(out.numpy() - ref)) / np.max(np.abs(ref))
     assert err < 1e-12, err
+
+
+def test_graft_dryrun_uses_the_devices_it_has():
+    """The multi-device dry run runs in this process on the devices JAX
+    has (8 virtual CPU devices here), and refuses a mesh larger than
+    that instead of starting a second process."""
+    import __graft_entry__ as g
+
+    g.dryrun_multichip(4)
+    with pytest.raises(RuntimeError, match="needs 16 devices"):
+        g.dryrun_multichip(16)
+
+
+def test_graft_entry_step_matches_numpy():
+    import __graft_entry__ as g
+
+    fn, (ar, ai) = g.entry()
+    outr, outi = jax.jit(fn)(ar, ai)
+    ref = np.fft.fft(np.asarray(ar) + 1j * np.asarray(ai))
+    assert_spectrum_close(np.asarray(outr) + 1j * np.asarray(outi), ref,
+                          np.complex64)

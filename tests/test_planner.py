@@ -71,16 +71,16 @@ def test_digit_reverse():
 
 
 def test_next_fast_len():
-    from tpufft.planner import next_fast_len
-    from tpufft.kernels.mxu_fft import kernel_factors
+    from tpufft.planner import FAST_MAX_PRIME, factorize, next_fast_len
     assert next_fast_len(1) == 1
-    assert next_fast_len(93) == 93          # <= 128: already fast
+    assert next_fast_len(93) == 96          # 3 * 31 -> 2^5 * 3
     assert next_fast_len(1024) == 1024
     for n in (129, 1000, 5000, 16385, 100000):
         m = next_fast_len(n)
         assert m >= n
         assert next_fast_len(m) == m      # idempotent: m itself is fast
-    assert kernel_factors(next_fast_len(1000)) is not None
+        assert max(factorize(m)) <= FAST_MAX_PRIME
+    assert next_fast_len(1000) == 1000
     m = next_fast_len(93, aligned=True)
-    assert m % 128 == 0 and m >= 93 and kernel_factors(m) is not None
+    assert m == 128
     assert next_fast_len(1024, aligned=True) == 1024

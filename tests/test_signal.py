@@ -1,9 +1,9 @@
 """signal module: fused circular filters and scipy-compatible fftconvolve.
 
 The filter plan folds fft -> diag(H) -> ifft into ONE circulant-matrix
-matmul (kernels/mxu_fft.build_minor_dense); these tests pin it against the
-explicit three-step numpy pipeline on both the XLA path and the fused
-kernel path (interpret mode), plus scipy.signal oracles for fftconvolve.
+matmul for short axes; these tests pin it against the explicit three-step
+numpy pipeline under two plan configs (the default planner and one capped
+at radix 4), plus scipy.signal oracles for fftconvolve.
 """
 
 import jax
@@ -15,12 +15,12 @@ import scipy.signal as ss
 import tpufft
 from tpufft import PlanConfig, SplitComplex
 
-CFG_KERNEL = PlanConfig(interpret=True)
-CFG_XLA = PlanConfig(backend="xla")
+CFG_KERNEL = PlanConfig()
+CFG_XLA = PlanConfig(max_radix=4)
 
 
 @pytest.mark.parametrize("cfg", [CFG_KERNEL, CFG_XLA],
-                         ids=["kernel", "xla"])
+                         ids=["default", "radix4"])
 @pytest.mark.parametrize("n", [16, 93, 128, 480])
 def test_filter_matches_fft_pipeline(rng, cfg, n):
     x = rng.standard_normal((7, n)) + 1j * rng.standard_normal((7, n))
@@ -44,7 +44,7 @@ def test_filter_impulse_equals_response(rng):
 
 
 @pytest.mark.parametrize("cfg", [CFG_KERNEL, CFG_XLA],
-                         ids=["kernel", "xla"])
+                         ids=["default", "radix4"])
 def test_filter_real_hermitian_returns_real(rng, cfg):
     n = 128
     h = rng.standard_normal(n)          # real impulse -> Hermitian H
@@ -186,19 +186,18 @@ def test_fftconvolve_errors(rng):
 
 
 @pytest.mark.parametrize("cfg", [CFG_KERNEL, CFG_XLA],
-                         ids=["kernel", "xla"])
+                         ids=["default", "radix4"])
 def test_filter_long_axis_composed_path(rng, cfg):
     """Axes past FILTER_DENSE_MAX_N compose fft -> H -> ifft inside the
-    plan's jit instead of the O(n^2) dense matmul (measured crossover:
-    dense loses by ~2x at n=1024)."""
+    plan's jit instead of the O(n^2) dense matmul."""
     from tpufft.signal import FILTER_DENSE_MAX_N
-    n = 1024
+    n = 2048
     assert n > FILTER_DENSE_MAX_N
     H = rng.standard_normal(n) + 1j * rng.standard_normal(n)
     x = rng.standard_normal((5, n)) + 1j * rng.standard_normal((5, n))
     ref = np.fft.ifft(np.fft.fft(x, axis=-1) * H, axis=-1)
     plan = tpufft.plan_filter(n, response=H, config=cfg)
-    assert plan._kernel is None  # dense kernel not built for long axes
+    assert plan._cr is None  # no O(n^2) matrix for long axes
     got = np.asarray(plan(x.astype(np.complex64)))
     scale = max(1.0, np.max(np.abs(ref)))
     assert np.max(np.abs(got - ref)) / scale < 1e-3
@@ -221,7 +220,7 @@ def test_filter_real_kernel_grad(rng):
     n = 64
     h = rng.standard_normal(n)
     plan = tpufft.plan_filter(n, impulse=h, config=CFG_KERNEL)
-    assert plan._kernel_real is not None
+    assert plan._diff_real is not None
     x = jnp.asarray(rng.standard_normal((3, n)), jnp.float32)
 
     def loss(v):

@@ -1,8 +1,8 @@
-"""SplitComplex (device-native plane pair) API path.
+"""SplitComplex (plane pair) API path.
 
-The TPU backend has no complex dtypes, so the on-device representation is a
-pair of float planes; these tests exercise that path end-to-end on CPU
-(where it must agree with the combined-complex path bit-for-bit in float32).
+The transforms compute on a pair of float planes; these tests exercise
+that input/output form end-to-end (it must agree with the combined-complex
+path bit-for-bit in float32).
 """
 
 import numpy as np
@@ -88,23 +88,22 @@ def test_real_input_fast_path_matches(rng):
 
 
 def test_device_input_stays_on_device(rng, monkeypatch):
-    """jax.Array (device) input must never round-trip the host: on a
-    complex-free backend the plan returns SplitComplex planes."""
+    """jax.Array (device) input never round-trips the host: the plan
+    combines the planes on the device into a complex jax.Array, and
+    SplitComplex input gets SplitComplex planes back."""
+    import jax
     import jax.numpy as jnp
-    import tpufft.api as api
     from tpufft import SplitComplex
 
-    monkeypatch.setattr(api, "backend_supports_complex", lambda: False)
     x = rng.standard_normal((4, 64)).astype(np.float32)
-    # r2c: real jax input -> device planes (previously a hidden host combine)
-    out = tpufft.rfft(jnp.asarray(x))
-    assert isinstance(out, SplitComplex)
     ref = np.fft.rfft(x)
-    assert_spectrum_close(out.numpy(), ref, np.complex64)
-    # numpy input keeps the host convenience form
-    out_np = tpufft.rfft(x)
-    assert isinstance(out_np, np.ndarray)
-    assert_spectrum_close(out_np, ref, np.complex64)
+    out = tpufft.rfft(jnp.asarray(x))
+    assert isinstance(out, jax.Array) and out.dtype == jnp.complex64
+    assert_spectrum_close(np.asarray(out), ref, np.complex64)
+    z = (x + 1j * x[::-1]).astype(np.complex64)
+    sc = tpufft.fft(SplitComplex(jnp.asarray(z.real), jnp.asarray(z.imag)))
+    assert isinstance(sc, SplitComplex)
+    assert_spectrum_close(sc.numpy(), np.fft.fft(z), np.complex64)
 
 
 def test_splitcomplex_numpy_conversion_protocol(rng):

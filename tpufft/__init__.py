@@ -1,17 +1,16 @@
-"""tpufft — TPU-native generic-radix N-dimensional FFT in JAX/Pallas.
+"""tpufft — generic-radix N-dimensional FFT in JAX.
 
-A from-scratch TPU-first rebuild of the capabilities of
-martinvuyk/hackathon-fft (a Mojo CPU/GPU mixed-radix Stockham FFT library):
-any prime radix, forward/inverse, real and complex input, ND transforms,
-explicit plans, autodiff, and multi-chip execution over device meshes.
+A from-scratch JAX rebuild of the capabilities of martinvuyk/hackathon-fft
+(a Mojo CPU/GPU mixed-radix Stockham FFT library): any prime radix,
+forward/inverse, real and complex input, ND transforms, explicit plans,
+autodiff, and multi-device execution over device meshes.
 
-Complex data is split re/im float planes on device (``SplitComplex``; TPU
-has no complex dtype). The hot path computes whole transforms as dense
-DFT-matrix matmuls in VMEM (Bailey four-step with Kronecker-padded
-128-deep contractions on the MXU — kernels/mxu_fft.py); a pure-XLA
-Stockham path serves as oracle and fallback, and a native C++ engine
-(native/) covers CPU execution. See README.md for the architecture and
-PARITY.md for the reference component map.
+Complex data is split re/im float planes inside the transforms
+(``SplitComplex``). Every axis runs a pure-jnp mixed-radix Stockham (or
+Bluestein's chirp-z for large prime factors), which XLA compiles for the
+GPU or CPU; a native C++ engine (native/) covers host execution. See
+README.md for the architecture and PARITY.md for the reference component
+map.
 """
 
 from .config import PlanConfig

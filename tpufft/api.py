@@ -10,11 +10,9 @@ layout contract ``_check_layout_conditions_nd``, fft.mojo:20-47).
 Complex data crosses this boundary in either of two forms:
 
 * ordinary complex (or real) arrays — convenience form; split into re/im
-  float planes on entry and recombined on exit (on-device where the backend
-  supports complex, on the host for the TPU backend, which has no complex
-  dtypes at all);
-* ``SplitComplex(re, im)`` float-plane pairs — the device-native form; stays
-  on device end-to-end and is the form to use inside jitted/sharded code.
+  float planes on entry and recombined on the device on exit;
+* ``SplitComplex(re, im)`` float-plane pairs — the plane form the transforms
+  compute in; stays on device end-to-end.
 
 Unlike the reference — whose "rfft" reads real input but always emits the
 full-length spectrum (``do_rfft``, fft/fft/_fft.mojo:115-118) — this library
@@ -26,7 +24,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import logging
 import math
 from typing import Sequence
 
@@ -36,7 +33,7 @@ import jax
 import jax.numpy as jnp
 
 from .config import PlanConfig
-from .core import SplitComplex, backend_supports_complex, real_dtype_for
+from .core import SplitComplex, real_dtype_for
 from .planner import default_bases, validate_bases
 from . import execute as _execute
 
@@ -58,13 +55,12 @@ _NORMS = (None, "backward", "ortho", "forward")
 class PrecisionDowngradeWarning(UserWarning):
     """A float64/complex128 plan will compute in float32.
 
-    Raised at plan time when ``jax_enable_x64`` is off (the on-device
-    default: TPU hardware has no f64 at all). The reference runs f64
-    through its GPU tests (fft/tests.mojo:374-390); TPU cannot — the
-    honest answer is to say so instead of silently returning the 1e-3
-    tier where 1e-6 was requested. Precision tiers on chip:
-    c64 via bf16x3 emulation (~1e-3), or bf16 planes / one-pass bf16
-    (~4e-3, opt-in via PlanConfig).
+    Raised at plan time when ``jax_enable_x64`` is off (JAX's default).
+    The reference runs f64 through its GPU tests (fft/tests.mojo:374-390);
+    without x64 JAX has no f64 arrays, and the honest answer is to say so
+    instead of silently returning the 1e-3 tier where 1e-6 was requested.
+    Precision tiers: c64 (~1e-6 typical, 1e-3 contract), c128 under x64,
+    or bf16 planes (~4e-3, opt-in via PlanConfig).
     """
 
 
@@ -77,9 +73,9 @@ def _check_x64_downgrade(dtype) -> None:
         warnings.warn(
             f"plan dtype {d} requested but jax_enable_x64 is off: the "
             "transform will compute and return in the float32/complex64 "
-            "tier (~1e-3, not ~1e-6). Enable x64 on CPU for true f64, or "
-            "cast the input to complex64 to silence this warning. TPU "
-            "devices have no float64 hardware.",
+            "tier (~1e-3, not ~1e-6). Enable x64 "
+            "(jax.config.update('jax_enable_x64', True)) for true f64, or "
+            "cast the input to complex64 to silence this warning.",
             PrecisionDowngradeWarning,
             stacklevel=3,
         )
@@ -177,11 +173,9 @@ class Plan:
         """Execute the plan.
 
         Output form follows the input form:
-        * ``SplitComplex`` in -> ``SplitComplex`` out (device-native);
-        * jax.Array in -> device-resident out (``lax.complex`` where the
-          backend has complex dtypes, ``SplitComplex`` planes on TPU —
-          never a hidden device->host transfer);
-        * numpy in -> numpy complex out (host convenience form);
+        * ``SplitComplex`` in -> ``SplitComplex`` out (planes);
+        * any other array in -> a complex jax.Array (combined on the
+          device by ``lax.complex``);
         * ``c2r`` returns the real plane.
         """
         if self.layout == "lane-fused":
@@ -198,13 +192,12 @@ class Plan:
                 rdt = jnp.bfloat16
             return self._fn_fused(xn.astype(rdt))
         split_io = isinstance(x, SplitComplex)
-        device_in = isinstance(x, jax.Array)
         ar, ai = self._split_input(x)
         rdt = real_dtype_for(self.dtype)
         if (self.config.plane_dtype == "bfloat16"
                 and jnp.dtype(rdt) == jnp.dtype(jnp.float32)):
             # bf16-plane mode: planes live in bf16 end-to-end (the point is
-            # halved HBM traffic, so no f32 staging pass is inserted);
+            # halved memory traffic, so no f32 staging pass is inserted);
             # SplitComplex callers get bf16 planes back.
             rdt = jnp.bfloat16
         ar = ar.astype(rdt)
@@ -221,14 +214,7 @@ class Plan:
         if jnp.dtype(outr.dtype) == jnp.dtype(jnp.bfloat16):
             outr = outr.astype(jnp.float32)
             outi = outi.astype(jnp.float32)
-        if backend_supports_complex():
-            return jax.lax.complex(outr, outi)
-        if device_in:
-            # device input, complex-free backend: stay on device as planes
-            # (the numpy combine below would silently round-trip the host)
-            return SplitComplex(outr, outi)
-        out = SplitComplex(outr, outi).numpy()
-        return out
+        return jax.lax.complex(outr, outi)
 
     def _split_input(self, x):
         if isinstance(x, SplitComplex):
@@ -356,55 +342,10 @@ class Plan:
 
 def _apply_plan_fused(st, *, plan: "Plan"):
     """Trace-time body for layout='lane-fused' plans: one array whose
-    lanes hold [re(k) | im(k)] for the minor transform axis. On TPU the
-    trailing 2*n3 dim is lane-aligned, so the cube kernel reads dense
-    full-bandwidth tiles (the split-plane minor-64 layout is stored
-    128-padded and reads at a fraction of peak). Falls back to the
-    split-plane pipeline (lane slice / re-concat) off the kernel path."""
-    from .kernels import mxu_fft as _mxu
-
+    minor axis holds [re(k) | im(k)] for the minor transform axis. The
+    transform runs on the two lane halves as split planes and concatenates
+    them back."""
     n3 = plan.lengths[-1]
-    scale = _norm_scale(plan.norm, math.prod(plan.lengths), plan.inverse)
-    cfg = plan.config
-    kernel_ok = cfg.backend in ("auto", "pallas") and (
-        cfg.interpret or _execute._is_tpu_backend())
-    lead = plan.axes[:-3]
-    l2 = 2 * n3
-    if (kernel_ok
-            and _execute.cube_supported(*plan.lengths[-3:], st.dtype, cfg)
-            and all(_mxu.inner_fused_supported(plan.lengths[i], st.dtype,
-                                               cfg, l2)
-                    for i in range(len(lead)))):
-        for i, a in enumerate(lead):
-            st = _execute.fft_axis_fused(
-                st, a, inverse=plan.inverse, scale=1.0, config=cfg)
-        return _execute.fft_cube_fused(
-            st, inverse=plan.inverse, scale=scale, config=plan.config)
-    if (kernel_ok
-            and _mxu.pair_fused_supported(plan.lengths[-2], n3, st.dtype,
-                                          cfg)
-            and all(_mxu.inner_fused_supported(plan.lengths[i], st.dtype,
-                                               cfg, l2)
-                    for i in range(len(plan.axes) - 2))):
-        # cube working set over VMEM (e.g. 128^3): last two axes in one
-        # pair pass, leading axes as inner passes — every pass still
-        # reads dense lane-aligned tiles, no plane pair
-        for a in plan.axes[:-2]:
-            st = _execute.fft_axis_fused(
-                st, a, inverse=plan.inverse, scale=1.0, config=cfg)
-        return _execute.fft_pair_fused(
-            st, inverse=plan.inverse, scale=scale, config=cfg)
-    if (kernel_ok
-            and _mxu.minor_fused_supported(n3, st.dtype, cfg)
-            and all(_mxu.inner_fused_supported(plan.lengths[i], st.dtype,
-                                               cfg, l2)
-                    for i in range(len(plan.axes) - 1))):
-        # pair tile over VMEM too: per-axis fused passes
-        for a in plan.axes[:-1]:
-            st = _execute.fft_axis_fused(
-                st, a, inverse=plan.inverse, scale=1.0, config=cfg)
-        return _execute.fft_minor_fused(
-            st, inverse=plan.inverse, scale=scale, config=cfg)
     outr, outi = _apply_plan_split(st[..., :n3], st[..., n3:], plan=plan)
     return jnp.concatenate([outr, outi], axis=-1)
 
@@ -420,109 +361,13 @@ def _apply_plan_split(ar, ai, *, plan: Plan):
     if plan.kind == "c2r":
         return _apply_c2r(ar, ai, plan, scale)
 
-    # When the transform includes the array's three (or two) minor axes and
-    # the tile fits VMEM, run them as ONE fused kernel pass: a whole small
-    # cube (e.g. 64^3) costs a single HBM roundtrip instead of three.
-    # (Fusion decisions use the post-resize target shape.)
-    ndim = ar.ndim
-    tgt = list(ar.shape)
     for a, n in zip(axes, lengths):
-        tgt[a] = n
-    cube_last = (
-        len(axes) >= 3
-        and set(axes[-3:]) == {ndim - 3, ndim - 2, ndim - 1}
-        and _execute.cube_supported(
-            tgt[-3], tgt[-2], tgt[-1], ar.dtype, plan.config)
-    )
-    pair_last = not cube_last and (
-        len(axes) >= 2
-        and set(axes[-2:]) == {ndim - 2, ndim - 1}
-        and _execute.pair_supported(
-            tgt[-2], tgt[-1], ar.dtype, plan.config)
-    )
-    n_single = len(axes) - (3 if cube_last else (2 if pair_last else 0))
-    # Zero-padded axes served by the per-axis loop fuse the pad INTO the
-    # transform (one rectangular kernel pass — the XLA zero-pad of a
-    # misaligned layout costs more than the transform, see
-    # execute.pad_axis_ok); everything else crops/pads here.
-    pad_fused = set()
-    pair_pad = None
-    for i, (a, n) in enumerate(zip(axes, lengths)):
-        cur = ar.shape[a]
-        if (i < n_single and cur < n
-                and _execute.pad_axis_ok(cur, n, ar.dtype, plan.config)):
-            pad_fused.add(i)
-            continue
-        if (pair_last and i >= n_single and a == ndim - 1 and cur < n
-                and _execute.pair_pad_ok(tgt[-2], cur, n, ar.dtype,
-                                         plan.config)):
-            pair_pad = n
-            continue
         ar, ai = _resize_axis(ar, n, a), _resize_axis(ai, n, a)
-    # Pad-fused stages run FIRST so every later pass reads the ALIGNED
-    # layout (that is the point of an aligned-padding plan); the whole
-    # normalization is fused into exactly one stage.
-    pair_first = pair_last and pair_pad is not None
-    if pair_first:
-        ar, ai = _execute.fft_pair_last(
-            ar, ai, inverse=plan.inverse, scale=scale, config=plan.config,
-            n2_out=pair_pad,
-        )
-    single_order = ([i for i in range(n_single) if i in pad_fused]
-                    + [i for i in range(n_single) if i not in pad_fused])
-    # Adjacent single axes at positions (ndim-3, ndim-2) fuse into ONE
-    # middle-pair kernel pass — the deep-ND analog of the trailing
-    # pair/cube fusion. The (PRE, n1, n2, L) view must be a FREE reshape,
-    # which on the TPU's (8, 128)-tiled layout means L is exactly the
-    # array's minor dim (merging two trailing dims re-pairs the tiling
-    # and XLA physically repacks — measured +4 ms on the aligned 5D
-    # shape, wiping out the saved pass).
-    dense = (ndim >= 2 and tgt[-1] % 128 == 0)
-    mid_second: dict[int, int] = {}
-    if dense:
-        cand = [i for i in range(n_single) if i not in pad_fused]
-        j = 0
-        while j + 1 < len(cand):
-            i1, i2 = cand[j], cand[j + 1]
-            if (axes[i2] == axes[i1] + 1 and axes[i2] == ndim - 2
-                    and _execute.mid_pair_ok(lengths[i1], lengths[i2],
-                                             ar.dtype, plan.config)):
-                mid_second[i1] = i2
-                j += 2
-            else:
-                j += 1
-    skip = set(mid_second.values())
-    for k, i in enumerate(single_order):
-        if i in skip:
-            continue
-        takes_scale = (not cube_last and not pair_last
-                       and k == len(single_order) - 1)
-        axis_scale = scale if takes_scale else 1.0
-        if i in pad_fused:
-            ar, ai = _execute.fft_axis_padded(
-                ar, ai, axes[i], lengths[i], inverse=plan.inverse,
-                scale=axis_scale, config=plan.config,
-            )
-        elif i in mid_second:
-            i2 = mid_second[i]
-            takes_scale = (not cube_last and not pair_last
-                           and max(i, i2) == single_order[-1])
-            ar, ai = _execute.fft_mid_pair(
-                ar, ai, axes[i], inverse=plan.inverse,
-                scale=scale if takes_scale else 1.0, config=plan.config,
-            )
-        else:
-            ar, ai = _execute.fft_axis(
-                ar, ai, axes[i], plan.bases[i], inverse=plan.inverse,
-                scale=axis_scale, config=plan.config,
-            )
-    if cube_last:
-        ar, ai = _execute.fft_cube_last(
-            ar, ai, inverse=plan.inverse, scale=scale, config=plan.config,
-        )
-    elif pair_last and not pair_first:
-        ar, ai = _execute.fft_pair_last(
-            ar, ai, inverse=plan.inverse, scale=scale, config=plan.config,
+    # the whole normalization is fused into the last axis's transform
+    for i, a in enumerate(axes):
+        ar, ai = _execute.fft_axis(
+            ar, ai, a, plan.bases[i], inverse=plan.inverse,
+            scale=scale if i == len(axes) - 1 else 1.0,
         )
     return ar, ai
 
@@ -543,20 +388,11 @@ def _apply_r2c(ar, ai, plan: Plan, scale: float):
         ar, ai = _resize_axis(ar, n, a), _resize_axis(ai, n, a)
     n_last = lengths[-1]
     s_last = scale if len(axes) == 1 else 1.0
-    if (ai is None and n_last >= 2
-            and _execute.r2c_minor_supported(n_last, ar.dtype, plan.config)):
-        # one rectangular-matmul MXU pass, any n (odd/prime included):
-        # X = x @ V_(n, n//2+1). The packed half-length path's XLA lane
-        # gathers cost 10x the transform on TPU (measured 16.7 -> 1.5 ms
-        # on (500000, 128)); the kernel pays the redundant FLOPs instead.
-        ar, ai = _execute.rfft_minor(ar, axes[-1], n_last, s_last,
-                                     plan.config)
-    elif n_last % 2 == 0 and ai is None and n_last >= 2:
-        ar, ai = _rfft_packed_last(ar, axes[-1], n_last, s_last, plan.config)
+    if n_last % 2 == 0 and ai is None and n_last >= 2:
+        ar, ai = _rfft_packed_last(ar, axes[-1], n_last, s_last)
     else:
         ar, ai = _execute.fft_axis(
             ar, ai, axes[-1], plan.bases[-1], inverse=False, scale=s_last,
-            config=plan.config,
         )
         sl = [slice(None)] * ar.ndim
         sl[axes[-1]] = slice(0, n_last // 2 + 1)
@@ -565,7 +401,6 @@ def _apply_r2c(ar, ai, plan: Plan, scale: float):
         axis_scale = scale if i == len(axes) - 2 else 1.0
         ar, ai = _execute.fft_axis(
             ar, ai, a, plan.bases[i], inverse=False, scale=axis_scale,
-            config=plan.config,
         )
     return ar, ai
 
@@ -578,22 +413,6 @@ def _apply_c2r(ar, ai, plan: Plan, scale: float):
     n_last = lengths[-1]
     for a, n in zip(axes[:-1], lengths[:-1]):
         ar, ai = _resize_axis(ar, n, a), _resize_axis(ai, n, a)
-    if (n_last >= 2
-            and _execute.r2c_minor_supported(n_last, ar.dtype, plan.config)):
-        # direct Hermitian synthesis: one rectangular-matmul MXU pass
-        if ai is None:
-            ai = jnp.zeros_like(ar)
-        m1 = n_last // 2 + 1
-        ar = _resize_axis(ar, m1, axes[-1])
-        ai = _resize_axis(ai, m1, axes[-1])
-        for i, a in enumerate(axes[:-1]):
-            ar, ai = _execute.fft_axis(
-                ar, ai, a, plan.bases[i], inverse=True, scale=1.0,
-                config=plan.config,
-            )
-        out = _execute.irfft_minor(ar, ai, axes[-1], n_last, scale,
-                                   plan.config)
-        return out, None
     if n_last % 2 == 0 and n_last >= 2:
         if ai is None:
             ai = jnp.zeros_like(ar)
@@ -602,10 +421,8 @@ def _apply_c2r(ar, ai, plan: Plan, scale: float):
         for i, a in enumerate(axes[:-1]):
             ar, ai = _execute.fft_axis(
                 ar, ai, a, plan.bases[i], inverse=True, scale=1.0,
-                config=plan.config,
             )
-        out = _irfft_packed_last(ar, ai, axes[-1], n_last, 2.0 * scale,
-                                 plan.config)
+        out = _irfft_packed_last(ar, ai, axes[-1], n_last, 2.0 * scale)
         return out, None
     # legacy: Hermitian-extend to full length, inverse C2C everywhere
     ar, ai = _hermitian_extend(
@@ -615,7 +432,6 @@ def _apply_c2r(ar, ai, plan: Plan, scale: float):
         axis_scale = scale if i == len(axes) - 1 else 1.0
         ar, ai = _execute.fft_axis(
             ar, ai, a, plan.bases[i], inverse=True, scale=axis_scale,
-            config=plan.config,
         )
     return ar, None
 
@@ -627,7 +443,7 @@ def _half_twiddle(m: int, n: int):
     return np.cos(theta), np.sin(theta)
 
 
-def _rfft_packed_last(ar, axis, n, scale, config):
+def _rfft_packed_last(ar, axis, n, scale):
     """Half-length packed rfft along ``axis`` (n even, real input plane)."""
     from .planner import default_bases
 
@@ -638,7 +454,6 @@ def _rfft_packed_last(ar, axis, n, scale, config):
     ze, zo = x2[..., 0], x2[..., 1]
     zr, zi = _execute.fft_axis(
         ze, zo, ar.ndim - 1, default_bases(m), inverse=False, scale=scale,
-        config=config,
     )
     # k-indexed (length m+1) views: Z[k % m] and Z[(m - k) % m]
     zk_r = jnp.concatenate([zr, zr[..., :1]], -1)
@@ -660,7 +475,7 @@ def _rfft_packed_last(ar, axis, n, scale, config):
     return jnp.moveaxis(xr, -1, axis), jnp.moveaxis(xi, -1, axis)
 
 
-def _irfft_packed_last(ar, ai, axis, n, inner_scale, config):
+def _irfft_packed_last(ar, ai, axis, n, inner_scale):
     """Half-length packed irfft along ``axis`` (n even). ``inner_scale`` is
     2 * user_scale (the pipeline's inherent 1/2 folded in); returns the real
     output plane."""
@@ -694,7 +509,7 @@ def _irfft_packed_last(ar, ai, axis, n, inner_scale, config):
     zi = ei + or_
     zr, zi = _execute.fft_axis(
         zr, zi, ar.ndim - 1, default_bases(m), inverse=True,
-        scale=inner_scale, config=config,
+        scale=inner_scale,
     )
     out = jnp.stack([zr, zi], -1).reshape(pre + (n,))
     return jnp.moveaxis(out, -1, axis)
@@ -756,20 +571,15 @@ def _cached_plan(shape, dtype, axes, lengths, bases, inverse, norm, kind,
 
 
 def _lane_util(n: int) -> float:
-    """Lane utilization of a length stored on the TPU's 128-lane minor
-    dim: n / (ceil(n/128)*128). 1.0 = perfectly aligned; (1e6, 93)-class
-    misalignment is 0.73; a 48-wide minor wastes 5/8 of every vreg."""
+    """Share of whole 128-element rows a length fills:
+    n / (ceil(n/128)*128). 1.0 = a multiple of 128; 93 gives 0.73."""
     return n / (-(-n // 128) * 128)
 
 
 def _resolve_fast_length(v, current: int) -> int:
     """Resolve one ``s``/``n`` entry: an int, or the auto-pad conveniences
-    "fast" (next kernel-friendly length) / "fast-aligned" (additionally a
-    multiple of 128). Non-128-multiple minor axes pay ~3-4x in DMA
-    ((1e6, 93): 8.7 ms vs 2.6 ms for the same batch at width 128), but the
-    zero-pad itself costs an HBM pass — the win comes from KEEPING data in
-    the aligned layout across a pipeline, not from padding per call; see
-    planner.next_fast_len."""
+    "fast" (next 7-smooth length) / "fast-aligned" (additionally a
+    multiple of 128); see planner.next_fast_len."""
     if isinstance(v, str):
         from .planner import next_fast_len
 
@@ -809,19 +619,13 @@ def plan_fft(
     ``PlanConfig``.
 
     ``layout="transform-major"`` (c2c only): the plan's device planes
-    store a transform-friendly axis order. Single axis: the transform
-    axis FIRST — ``moveaxis(x, axis, 0)`` — so a minor length far off a
-    128-lane multiple (e.g. 93) reads at full HBM bandwidth through the
-    nd-inner kernel instead of paying the misaligned-DMA floor (measured
-    (1e6, 93): 8.8 ms natural vs ~3.1 ms transform-major, same logical
-    semantics). Multiple axes: the transform axes are permuted so the
-    most lane-aligned length is MINOR (and the second-best second-minor,
-    enabling the trailing pair/cube kernel fusions) — the escape for
-    shapes like (1, 25, 160, 160, 48) whose 48-wide minor otherwise pays
-    the misaligned floor on every axis pass. Convert once at the pipeline
-    edges with ``Plan.pack`` / ``Plan.unpack`` (host numpy converts on the
-    host side — the device never touches the misaligned layout) and keep
-    planes in plan layout between calls."""
+    store another axis order, with the same logical semantics. Single
+    axis: the transform axis FIRST — ``moveaxis(x, axis, 0)``. Multiple
+    axes: the transform axes are permuted so the length that fills whole
+    128-element rows best is MINOR. Convert once at the pipeline edges
+    with ``Plan.pack`` / ``Plan.unpack`` (host numpy converts on the host
+    side) and keep planes in plan layout between calls. Whether either
+    order is faster on the GPU is not measured yet."""
     cfg = config or PlanConfig()
     shape = tuple(int(d) for d in shape)
     _check_x64_downgrade(dtype)
@@ -872,13 +676,10 @@ def plan_fft(
                 phys, str(jnp.dtype(dtype)), (0,), (n,), bases, inverse,
                 norm, kind, cfg, layout, logical_shape, ax,
             )
-        # ND: permute so the most lane-aligned transform axis is MINOR
-        # (and the second-best second-minor, so the trailing pair/cube
-        # fusions apply). A multi-axis c2c FFT is a separable product —
-        # execution order is free — so the permutation only changes the
-        # physical plane layout, never the semantics. Measured target:
-        # (1, 25, 160, 160, 48) whose 48-wide minor pays the
-        # misaligned-DMA floor on EVERY axis pass in natural layout.
+        # ND: permute so the most row-aligned transform axis is MINOR. A
+        # multi-axis c2c FFT is a separable product — execution order is
+        # free — so the permutation only changes the physical plane
+        # layout, never the semantics.
         if s is not None:
             raise ValueError(
                 "layout='transform-major' with multiple axes does not "
@@ -906,36 +707,10 @@ def plan_fft(
             _resolve_fast_length(v, shape[a]) for v, a in zip(s, axes)
         )
     bases = _resolve_bases(lengths, bases, cfg)
-    _hint_alignment(shape, axes, lengths)
     return _cached_plan(
         shape, str(jnp.dtype(dtype)), axes, lengths, bases, inverse, norm,
         kind, cfg,
     )
-
-
-@functools.lru_cache(maxsize=1024)
-def _hint_alignment(shape, axes, lengths) -> None:
-    """One-time perf hint for misaligned minor axes (lru-cached per plan
-    signature so it logs once). TPU stores the trailing dim padded to a
-    multiple of 128 lanes; a transform whose minor length is far off a
-    128 multiple pays the misaligned-DMA floor — measured (1e6, 93):
-    8.2 ms vs 2.6 ms for the same bytes at width 128. ``s="fast-aligned"``
-    plans the padded length (planner.next_fast_len(aligned=True))."""
-    ndim = len(shape)
-    minor = ndim - 1
-    if minor not in axes:
-        return
-    n = lengths[axes.index(minor)]
-    if n >= 16 and n % 128:
-        logging.getLogger("tpufft").info(
-            "plan hint: minor-axis length %d is %d short of a 128-lane "
-            "multiple; on TPU this shape pays the misaligned-DMA floor "
-            "(up to ~3x). If zero-padding is acceptable, plan with "
-            "s='fast-aligned' (length %d) and keep the padded layout "
-            "across the pipeline; otherwise plan with "
-            "layout='transform-major' (exact semantics, planes stored "
-            "transform-axis-first, full bandwidth).", n, 128 - (n % 128),
-            ((n + 127) // 128) * 128)
 
 
 def _logical_dtype(x):
@@ -1044,10 +819,6 @@ def hfft(x, n=None, axis=-1, norm=None, **kw):
     if isinstance(res, SplitComplex):
         s = jnp.asarray(scale, res.dtype)
         return SplitComplex(res.re * s, res.im * s)
-    if isinstance(res, np.ndarray):
-        # host result stays host: a jnp complex scalar would device-put
-        # onto a backend that may store no complex dtypes (TPU)
-        return res * np.asarray(scale, res.dtype)
     return res * jnp.asarray(scale, res.dtype)
 
 
@@ -1079,10 +850,6 @@ def _hfft_scale(res, n_total, norm, inverse):
     if isinstance(res, SplitComplex):
         s = jnp.asarray(scale, res.dtype)
         return SplitComplex(res.re * s, res.im * s)
-    if isinstance(res, np.ndarray):
-        # host result stays host: a jnp complex scalar would device-put
-        # onto a backend that may store no complex dtypes (TPU)
-        return res * np.asarray(scale, res.dtype)
     return res * jnp.asarray(scale, res.dtype)
 
 
@@ -1151,7 +918,7 @@ def rfftfreq(n, d=1.0, *, dtype=None):
 def _shift(x, axes, sign):
     if isinstance(x, SplitComplex):
         return SplitComplex(_shift(x.re, axes, sign), _shift(x.im, axes, sign))
-    # numpy in -> numpy out (complex numpy arrays can't live on the TPU)
+    # numpy in -> numpy out
     xp = jnp if isinstance(x, jax.Array) else np
     x = xp.asarray(x)
     if axes is None:

@@ -5,8 +5,8 @@ for (PARITY.md "beyond parity"):
 
 - ``set_workers``/``get_workers``: scipy's thread-count context manager.
   Here it controls the native C++ CPU engine's OpenMP team (the only
-  host-threaded execution path — XLA/TPU dispatch is async and the chip
-  is not host-thread-scaled). Default 0 = the engine's own default (all
+  host-threaded execution path — XLA's device dispatch is async and does
+  not scale with host threads). Default 0 = the engine's own default (all
   cores, OpenMP runtime policy), matching the library's standing behavior.
 
 - ``ScipyBackend``: a ``scipy.fft.set_backend`` target. With

@@ -11,88 +11,60 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["PlanConfig", "BACKENDS"]
+__all__ = ["PlanConfig", "REMOVED_KNOBS"]
 
-BACKENDS = ("auto", "pallas", "xla")
+# Knobs of the retired Pallas kernel tier. Passing one is an error, not a
+# silent no-op: each of them used to change what ran.
+REMOVED_KNOBS = ("backend", "lane_block", "interpret", "vmem_budget_bytes",
+                 "precision")
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, init=False)
 class PlanConfig:
     """Tuning knobs for an FFT plan.
 
     Attributes:
       max_radix: largest synthesized radix for the default planner.
-      backend: "pallas" (fused VMEM kernel), "xla" (pure jnp), or "auto"
-        (pallas on TPU when the working set fits VMEM, else xla). The analog
-        of the reference's forced-residency test knob ``_GPUTest``
-        (fft/fft/_ndim_fft_gpu.mojo:453-459).
-      lane_block: number of batch lanes per Pallas kernel block (the minor
-        axis of the in-kernel (N, B) state). None = auto from the VMEM model.
-      interpret: run Pallas kernels in interpreter mode (CPU CI — the analog
-        of the reference testing GPU tiers without that hardware).
-      vmem_budget_bytes: VMEM the launch-config model may plan against; the
-        analog of the reference's shared-memory budget
-        (``_GPUExecConfig.use_shared_memory``, fft/fft/_ndim_fft_gpu.mojo:114-136).
-      precision: MXU matmul precision for the fused kernel —
-        "bf16x3" (3-pass bf16 emulation, ~1e-6 rel err, fastest accurate
-        mode), "highest" (6-pass full f32), or "default" (1-pass bf16,
-        ~4e-3 rel err; for tolerance-insensitive pipelines only).
-      plane_dtype: HBM storage dtype for the split re/im planes —
-        "float32" (default) or "bfloat16". bf16 planes halve ALL HBM
-        traffic, the bottleneck for every large shape; kernels upcast
-        blocks to f32 in VMEM, so the compute precision is unchanged and
-        the total error is dominated by the ~3.9e-3 relative storage
-        rounding (~1e-2 worst-case after an ND pipeline). Opt-in for
-        tolerance-insensitive, bandwidth-bound pipelines; f64 plans
-        ignore it.
-      profile: one-switch accuracy/speed tier.
-        * "accurate" (default): f32 planes + bf16x3 matmuls, ~1e-6 rel
-          error — the contract every test in the suite runs at.
-        * "fast": bf16 HBM planes (halves traffic — the win on every
-          bandwidth-bound shape) AND one-pass bf16 matmuls (the win on
-          compute-bound shapes: 512^3 pair, dense small-n); worst-case
-          relative error ~8e-3 (storage ~3.9e-3 + matmul ~4e-3), still
-          2.5x inside the reference's own 1e-2 GPU test tolerance
-          (fft/tests.mojo:37-41). Measured v5e: headline (100000,1024)
-          2.54 -> ~1.8 ms, (1e6,93) 8.55 -> ~4.6 ms, 512^3 10.3 -> ~7 ms.
-        "fast" only fills knobs the user left at their defaults — an
-        explicit precision= or plane_dtype= wins over the profile; f64
-        plans ignore it entirely (host/CPU x64 stays exact).
+      plane_dtype: storage dtype for the split re/im planes — "float32"
+        (default) or "bfloat16". bf16 planes halve the bytes each pass
+        moves; every transform computes in f32 and rounds its result to
+        bf16, so the error is dominated by the ~3.9e-3 relative storage
+        rounding (~1e-2 worst case after an ND pipeline). Opt-in for
+        tolerance-insensitive pipelines; f64 plans ignore it.
+      profile: one-switch storage tier.
+        * "accurate" (default): f32 planes — the contract every test in
+          the suite runs at.
+        * "fast": bf16 planes, unless ``plane_dtype`` is given explicitly.
+          f64 plans ignore it (x64 stays exact).
     """
 
     max_radix: int = 16
-    backend: str = "auto"
-    lane_block: int | None = None
-    interpret: bool = False
-    vmem_budget_bytes: int = 12 * 1024 * 1024
-    precision: str | None = None     # resolved from profile when unset
     plane_dtype: str | None = None   # resolved from profile when unset
     profile: str = "accurate"
 
-    def __post_init__(self):
-        if self.profile not in ("accurate", "fast"):
+    def __init__(self, max_radix: int = 16, plane_dtype: str | None = None,
+                 profile: str = "accurate", **removed):
+        unknown = sorted(set(removed) - set(REMOVED_KNOBS))
+        if unknown:
+            raise TypeError(
+                f"PlanConfig got unexpected keyword argument(s) {unknown}")
+        if removed:
+            names = ", ".join(sorted(removed))
+            raise TypeError(
+                f"PlanConfig no longer takes {names}: the Pallas kernel "
+                "tier these knobs steered was removed, and every axis runs "
+                "the jnp Stockham (or Bluestein for large primes)")
+        if profile not in ("accurate", "fast"):
             raise ValueError(
-                f"profile must be accurate|fast, got {self.profile!r}"
+                f"profile must be accurate|fast, got {profile!r}"
             )
-        # fill only unset knobs: an explicit precision=/plane_dtype= wins
-        fast = self.profile == "fast"
-        if self.precision is None:
-            object.__setattr__(self, "precision",
-                               "default" if fast else "bf16x3")
-        if self.plane_dtype is None:
-            object.__setattr__(self, "plane_dtype",
-                               "bfloat16" if fast else "float32")
-        if self.backend not in BACKENDS:
+        # fill only an unset knob: an explicit plane_dtype= wins
+        if plane_dtype is None:
+            plane_dtype = "bfloat16" if profile == "fast" else "float32"
+        if plane_dtype not in ("float32", "bfloat16"):
             raise ValueError(
-                f"backend must be one of {BACKENDS}, got {self.backend!r}"
+                f"plane_dtype must be float32|bfloat16, got {plane_dtype!r}"
             )
-        if self.precision not in ("bf16x3", "highest", "default"):
-            raise ValueError(
-                f"precision must be bf16x3|highest|default, got "
-                f"{self.precision!r}"
-            )
-        if self.plane_dtype not in ("float32", "bfloat16"):
-            raise ValueError(
-                f"plane_dtype must be float32|bfloat16, got "
-                f"{self.plane_dtype!r}"
-            )
+        object.__setattr__(self, "max_radix", int(max_radix))
+        object.__setattr__(self, "plane_dtype", plane_dtype)
+        object.__setattr__(self, "profile", profile)

@@ -8,20 +8,17 @@ this module exposes the FULL chirp-z transform as public API: evaluate the
 z-transform on ``m`` points of any logarithmic spiral ``z_k = a * w**-k``,
 which subsumes zoomed / fractional-resolution spectra (``zoom_fft``).
 
-TPU-native design: the CZT is a chirp-premultiplied circular convolution
+Design: the CZT is a chirp-premultiplied circular convolution
 (Bluestein's identity ``w**(jk) = w**(j^2/2) w**(k^2/2) / w**((k-j)^2/2)``),
-evaluated as FFT_L -> pointwise -> IFFT_L at a 128-lane-aligned
-kernel-friendly length ``L >= n + m - 1`` — both transforms run on the MXU
-regardless of (n, m, w, a), and when the fused rectangular pad-DFT kernel
-serves (n, L) the zero-pad of the premultiplied input costs no extra HBM
-pass (execute.fft_axis_padded). All chirp tables are float64 host
-precomputes (exact integer modular reduction of the default-w angles, the
-same discipline as execute._bluestein_tables).
+evaluated as FFT_L -> pointwise -> IFFT_L at a 7-smooth length
+``L >= n + m - 1``, so both transforms are short-radix Stockham passes
+regardless of (n, m, w, a). All chirp tables are float64 host precomputes
+(exact integer modular reduction of the default-w angles, the same
+discipline as execute._bluestein_tables).
 
-IO contract matches signal.FilterPlan: numpy in -> numpy complex out (host
-combine — the TPU stores no complex arrays); jax real/SplitComplex in on a
-complex-free backend -> SplitComplex out (no hidden host trip); complex128
-input on the x64 CPU tier runs an exact host float64 pipeline.
+IO contract matches signal.FilterPlan: numpy in -> numpy complex out; jax
+in -> complex jax out; SplitComplex in -> SplitComplex out; complex128
+input under x64 runs an exact host float64 pipeline.
 """
 
 from __future__ import annotations
@@ -35,7 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .config import PlanConfig
-from .core import SplitComplex, backend_supports_complex
+from .core import SplitComplex
 from .planner import default_bases, next_fast_len
 from . import execute as _execute
 
@@ -95,7 +92,7 @@ class CZT:
         formula."""
         self.n, self.m, self.w, self.a = n, m, w, a
         self.config = config or PlanConfig()
-        L = next_fast_len(n + m - 1, aligned=True)
+        L = next_fast_len(n + m - 1)
         self._L = L
         # Awk2[j] = a^-j * w^(j^2/2): folds the input chirp and the spiral
         # start into ONE premultiply
@@ -139,19 +136,13 @@ class CZT:
         pi = re * Ai + im * Ar
         cfg = self.config
         bases = default_bases(L, cfg.max_radix)
-        if L > n and _execute.pad_axis_ok(n, L, pr.dtype, cfg):
-            # fused rectangular pad-DFT: the zero-pad to L costs no extra
-            # HBM pass
-            pr, pi = _execute.fft_axis_padded(
-                pr, pi, 1, L, inverse=False, scale=1.0, config=cfg)
-        else:
-            pad = ((0, 0), (0, L - n))
-            pr, pi = _execute.fft_axis(
-                jnp.pad(pr, pad), jnp.pad(pi, pad), 1, bases,
-                inverse=False, scale=1.0, config=cfg)
+        pad = ((0, 0), (0, L - n))
+        pr, pi = _execute.fft_axis(
+            jnp.pad(pr, pad), jnp.pad(pi, pad), 1, bases,
+            inverse=False, scale=1.0)
         pr, pi = pr * Br - pi * Bi, pr * Bi + pi * Br
         pr, pi = _execute.fft_axis(pr, pi, 1, bases, inverse=True,
-                                   scale=1.0 / L, config=cfg)
+                                   scale=1.0 / L)
         pr = pr[:, n - 1:n + m - 1]
         pi = pi[:, n - 1:n + m - 1]
         outr = pr * Pr - pi * Pi
@@ -173,7 +164,7 @@ class CZT:
     # -- host f64 tier --------------------------------------------------------
 
     def _f64_pipeline(self, xn: np.ndarray, axis: int) -> np.ndarray:
-        """Exact host complex128 evaluation (the 1e-12 tier for x64 CPU
+        """Exact host complex128 evaluation (the 1e-12 tier for x64
         callers, and the differential-test oracle)."""
         n, m, L = self.n, self.m, self._L
         x = np.moveaxis(np.asarray(xn, np.complex128), axis, -1)
@@ -191,8 +182,7 @@ class CZT:
             yr, yi = self._apply_planes(x.re, x.im, axis)
             return SplitComplex(yr, yi)
         is_np = not isinstance(x, jax.Array)
-        f64_host = jax.config.jax_enable_x64 \
-            and jax.default_backend() == "cpu"
+        f64_host = jax.config.jax_enable_x64
         if is_np:
             xn = np.asarray(x)
             if xn.dtype in (np.complex128, np.float64) and f64_host:
@@ -211,17 +201,12 @@ class CZT:
                     + 1j * np.asarray(yi))
         xj = x
         if jnp.issubdtype(xj.dtype, jnp.complexfloating):
-            # complex jax arrays only exist on the CPU backend
             yr, yi = self._apply_planes(jnp.real(xj), jnp.imag(xj), axis)
             out = yr.astype(jnp.complex64) + 1j * yi.astype(jnp.complex64)
             if xj.dtype == jnp.complex128 and jax.config.jax_enable_x64:
                 return out.astype(jnp.complex128)
             return out
         yr, yi = self._apply_planes(xj, jnp.zeros_like(xj), axis)
-        if not backend_supports_complex():
-            # device input on a complex-free backend: stay on device as
-            # planes (mirrors api.Plan's contract — no hidden host trip)
-            return SplitComplex(yr, yi)
         return yr.astype(jnp.complex64) + 1j * yi.astype(jnp.complex64)
 
 

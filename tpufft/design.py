@@ -2,8 +2,8 @@
 representation converters, and frequency-response evaluation.
 
 Completes the DSP story around :mod:`tpufft.iir` / :mod:`tpufft.multirate`:
-those modules *run* filters on TPU (associative-scan IIR, FFT-convolution
-FIR) but until now the coefficients had to come from scipy. This module
+those modules *run* filters on the device (associative-scan IIR,
+FFT-convolution FIR) but until now the coefficients had to come from scipy. This module
 designs them natively, so `decimate`'s anti-alias filters and any user
 pipeline are self-contained.
 

@@ -9,11 +9,10 @@ Hamilton (2000, astro-ph/9905191) FFTLog, behavior-matched to
     A = flip(irfft(u * rfft(a)))        (forward; inverse divides by u*)
 
 The u-coefficients are loggamma-based and computed on the HOST in float64
-(like every twiddle table in this library — TPU has no f64), cached as
-NUMPY arrays (jnp values must never be lru-cached: they leak tracers
-across jit traces, CLAUDE.md). The rfft/irfft ride the direct rectangular
-r2c/c2r MXU kernels on chip (kernels/mxu_fft.py), so a batched fht is one
-fused matmul pass per direction plus the diagonal u-multiply.
+(like every twiddle table in this library), cached as NUMPY arrays (jnp
+values must never be lru-cached: they leak tracers across jit traces,
+CLAUDE.md). The rfft/irfft are the library's own packed real transforms,
+so a batched fht is one rfft, a diagonal u-multiply and one irfft.
 
 Input may be a numpy array (numpy out), a jax array (jax out), or real
 ``SplitComplex`` planes are NOT accepted — the transform is real-to-real.

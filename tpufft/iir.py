@@ -4,7 +4,7 @@ default Chebyshev path needs.
 
 Beyond reference parity: the reference (martinvuyk/hackathon-fft) has no
 filtering layer at all; scipy's sosfilt is a C loop that is inherently
-sequential per sample. TPU-native design: each biquad section in
+sequential per sample. Design: each biquad section in
 transposed direct form II is an AFFINE map on its 2-dim state,
 
     z[n] = M z[n-1] + v x[n],   y[n] = b0 x[n] + z0[n-1]
@@ -59,10 +59,10 @@ def _scan_runner(sos_bytes: bytes, ns: int, dtype_str: str):
 
     def combine(a, b):
         # b is the LATER block: (Ab@Aa, Ab@ca + cb). The 2x2 algebra is
-        # UNROLLED into elementwise ops: an einsum/dot_general here would
-        # lower onto the TPU MXU in bf16 and wreck the recurrence
-        # (measured 1.5e-2 rel err over 100k samples; elementwise f32
-        # VPU ops keep it at the ~1e-5 f32 tier).
+        # UNROLLED into elementwise ops: an einsum/dot_general at default
+        # precision may run in reduced precision (TF32 on the GPU) and
+        # wreck the recurrence; elementwise f32 ops keep it at the f32
+        # tier.
         a00, a01, a10, a11, c0, c1 = a
         b00, b01, b10, b11, d0, d1 = b
         return (b00 * a00 + b01 * a10, b00 * a01 + b01 * a11,
@@ -169,11 +169,8 @@ def _tf_scan_runner(b_bytes: bytes, a_bytes: bytes, D: int,
     Hillis-Steele doubling loop whose level-o multiplier is the host-f64
     constant M^o: f[i] += M^o @ f[i-o] — one large (n*B, S) x (S, S)
     matmul per level (log2 n levels) instead of n tiny per-element
-    matrix products. (A lax.associative_scan over per-element (S,S)
-    dot_generals COMPILES PATHOLOGICALLY on this TPU: 54 s default /
-    213 s HIGHEST at n=20k, minutes beyond.) The matmuls run at HIGHEST
-    precision — default f32 dots lower to bf16 on the MXU and wreck the
-    recurrence. Row 0 of the scan array carries zi, so the same loop
+    matrix products. The matmuls run at HIGHEST precision — a default
+    f32 dot may run in TF32 on the GPU and wreck the recurrence. Row 0 of the scan array carries zi, so the same loop
     yields z[k] = M^(k+1) zi + sum M^(k-j) v x[j] and zf for free."""
     b = np.frombuffer(b_bytes, np.float64)
     a = np.frombuffer(a_bytes, np.float64)
@@ -212,7 +209,7 @@ def lfilter(b, a, x, axis: int = -1, zi=None):
     (scipy.signal.lfilter-compatible, direct form II transposed,
     including the ``zi``/``zf`` contract).
 
-    TPU-native design: an FIR (len(a) == 1) runs as ONE batched FFT
+    Design: an FIR (len(a) == 1) runs as ONE batched FFT
     convolution (the causal truncation of conv(b, x), with the zi
     transient added and zf read from the full-convolution tail); an IIR
     runs the state recurrence as a parallel associative scan over the

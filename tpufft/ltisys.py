@@ -569,8 +569,8 @@ def dlsim(system, u, t=None, x0=None):
         if nst and n_steps > 1:
             # state map for step k (k = 1..n-1): s -> A s + B u[k-1];
             # prefix-compose with associative_scan, apply to x0. All
-            # dots run at HIGHEST precision: a default f32 dot lowers
-            # to bf16 on the TPU MXU and costs ~1e-2 on the recurrence
+            # dots run at HIGHEST precision: a default f32 dot may run
+            # in TF32 on the GPU and lose ~3 digits on the recurrence
             # (same pitfall tpufft.iir documents for its sosfilt scan)
             offs = jnp.matmul(uj[:-1], jnp.asarray(B.T, jnp.float32),
                               precision=hp)

@@ -5,13 +5,13 @@ Beyond reference parity: the reference (martinvuyk/hackathon-fft) stops at
 raw transforms; resampling is the standard consumer of batched convolution
 and rides this package's fused FFT-convolution path.
 
-TPU-native design:
+Design:
 * ``upfirdn`` = zero-stuff -> linear convolution -> stride. The
   convolution runs through :func:`tpufft.signal.fftconvolve`, i.e. the
-  batched r2c/c2r MXU kernels with fast-length padding — one fused
-  transform per call instead of scipy's O(N/P)-per-sample polyphase C
-  loop (which is a CPU idiom: its inner gather defeats lane vectorization
-  on wide machines).
+  batched packed r2c/c2r transforms with fast-length padding — one
+  batched transform per call instead of scipy's O(N/P)-per-sample
+  polyphase C loop (which is a CPU idiom: its inner gather defeats
+  vectorization on wide machines).
 * Boundary modes are applied by materializing a small host/device edge
   extension (the virtual extension only ever reaches
   ceil((len(h)-1)/up) input samples past each edge), then cropping the
@@ -146,7 +146,7 @@ def upfirdn(h, x, up: int = 1, down: int = 1, axis: int = -1,
     downsample by ``down`` — scipy.signal.upfirdn-compatible, including
     output length and the boundary ``mode``/``cval`` semantics.
 
-    Runs as ONE batched FFT convolution through the fused kernel path
+    Runs as ONE batched FFT convolution through the packed real-FFT path
     (see module docstring) instead of a per-sample polyphase loop."""
     up, down = int(up), int(down)
     if up < 1 or down < 1:

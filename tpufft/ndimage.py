@@ -12,7 +12,7 @@ planes (the same discipline as ``signal.hilbert2``'s mask).
 
 Input flavors follow the house contract: numpy in -> numpy out (host
 compute), ``jax.Array`` in -> device compute, ``SplitComplex`` planes in
--> ``SplitComplex`` out (the TPU backend stores no complex dtypes).
+-> ``SplitComplex`` out.
 
 Semantics verified numerically against scipy.ndimage (fourier_gaussian:
 exp(-2 pi^2 s^2 f^2) per axis; fourier_uniform: sinc(size*f) — the
@@ -176,8 +176,8 @@ def fourier_shift(input, shift, n: int = -1, axis: int = -1, output=None):
     (scipy.ndimage.fourier_shift-compatible).
 
     The transfer function is complex: numpy input promotes to complex,
-    a real ``jax.Array`` returns ``SplitComplex`` planes (the TPU backend
-    stores no complex dtypes), ``SplitComplex`` stays ``SplitComplex``.
+    a ``jax.Array`` returns a complex ``jax.Array``, ``SplitComplex``
+    stays ``SplitComplex``.
     """
     is_split = isinstance(input, SplitComplex)
     ndim = input.re.ndim if is_split else np.ndim(input)
@@ -187,8 +187,6 @@ def fourier_shift(input, shift, n: int = -1, axis: int = -1, output=None):
     # separable per-axis accumulation keeps everything rank-1 until the
     # broadcasted multiply on the target device
     if is_split or isinstance(input, jax.Array):
-        from .core import backend_supports_complex
-
         if is_split:
             re, im = input.re, input.im
         elif jnp.issubdtype(input.dtype, jnp.complexfloating):
@@ -201,7 +199,7 @@ def fourier_shift(input, shift, n: int = -1, axis: int = -1, output=None):
             hi = jnp.asarray(_bshape(np.sin(-2 * np.pi * s * f), j, ndim),
                              re.dtype)
             re, im = re * hr - im * hi, re * hi + im * hr
-        if is_split or not backend_supports_complex():
+        if is_split:
             return SplitComplex(re, im)
         return jax.lax.complex(re, im)
     a = np.asarray(input)

@@ -2,8 +2,8 @@
 
 The reference is single-device (SURVEY.md §2 parallelism checklist: no
 DP/TP/PP/SP and no communication backend at all) — its only parallelism is
-threads within a chip. The TPU-native framework goes beyond parity the way
-the hardware wants to be used: a ``jax.sharding.Mesh`` over ICI with
+threads within a chip. This framework goes beyond parity with a
+``jax.sharding.Mesh`` over the devices with
 
 * **batch sharding** (the DP analog): leading batch axes sharded across a
   mesh axis; every device runs the ordinary local plan — XLA inserts no
@@ -24,9 +24,9 @@ the hardware wants to be used: a ``jax.sharding.Mesh`` over ICI with
   ``permuted_in=True`` consumes exactly that order, so an
   fft->pointwise->ifft pipeline pays 2 exchanges per direction instead of 3.
 
-All exchanges are ``lax.all_to_all`` riding ICI. Everything moves as split
-re/im float planes (core.SplitComplex): TPU has no complex dtype, and two
-real planes keep the all_to_all payloads packed.
+All exchanges are ``lax.all_to_all`` (NCCL over NVLink on a GPU host).
+Everything moves as split re/im float planes (core.SplitComplex), the
+representation the local transforms compute in.
 """
 
 from __future__ import annotations
@@ -40,14 +40,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.8: keyword-only API, check_rep renamed to check_vma
-    from jax import shard_map as _shard_map_new
-
-    def shard_map(f, mesh, in_specs, out_specs, check_rep=True):
-        return _shard_map_new(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_vma=check_rep)
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from .config import PlanConfig
 from .core import SplitComplex
@@ -89,13 +82,16 @@ def split_n(n: int, d: int) -> tuple[int, int]:
     return a, b
 
 
+@functools.lru_cache(maxsize=None)
 def _interfactor_twiddle(a: int, b: int, inverse: bool):
     """Host f64 twiddle planes T[ka, b] = e^{-+2pi i b ka / (a*b)}, shape
-    (a, b) — the same table the host two-pass uses (one definition; cast
-    to the plane dtype at the use site so f64 meshes keep the f64 tier)."""
-    from .execute import _two_pass_twiddle
-
-    return _two_pass_twiddle(a, b, inverse)
+    (a, b) (cast to the plane dtype at the use site so f64 meshes keep the
+    f64 tier)."""
+    sign = 1.0 if inverse else -1.0
+    k = np.outer(np.arange(a, dtype=np.float64),
+                 np.arange(b, dtype=np.float64))
+    theta = (sign * 2.0 * np.pi / (a * b)) * k
+    return np.cos(theta), np.sin(theta)
 
 
 def _a2a(x, axis_name: str, split_axis: int, concat_axis: int):
@@ -110,7 +106,7 @@ def _twiddle_mul(ar, ai, twr, twi):
 
 def _body_natural_in(
     ar, ai, twr, twi, *, A, B, d, axis_name, inverse, scale,
-    bases_a, bases_b, natural_out, config,
+    bases_a, bases_b, natural_out,
 ):
     """Device-local pipeline for block-natural input along the last axis.
 
@@ -139,16 +135,14 @@ def _body_natural_in(
     ar = ar.reshape(pre + (A // d, B))
     ai = ai.reshape(pre + (A // d, B))
     ar, ai = e1(ar), e1(ai)
-    # FFT over a (length A) for every local b column — through the backend
-    # dispatcher, so on TPU each per-shard transform runs in the fused MXU
-    # kernel rather than the XLA path.
+    # FFT over a (length A) for every local b column.
     ar, ai = fft_axis(ar, ai, ar.ndim - 2, bases_a, inverse=inverse,
-                      scale=1.0, config=config)
+                      scale=1.0)
     ar, ai = _twiddle_mul(ar, ai, twr, twi)   # T[ka, b], b-sharded slice
     ar, ai = e2(ar), e2(ai)
     # FFT over b (length B) for every local ka row; fold the norm scale here.
     ar, ai = fft_axis(ar, ai, ar.ndim - 1, bases_b, inverse=inverse,
-                      scale=scale, config=config)
+                      scale=scale)
     if natural_out:
         return e3(ar), e3(ai)
     return ar.reshape(pre + (rows * B,)), ai.reshape(pre + (rows * B,))
@@ -156,7 +150,7 @@ def _body_natural_in(
 
 def _body_permuted_in(
     ar, ai, twr, twi, *, A, B, d, axis_name, inverse, scale,
-    bases_a, bases_b, config,
+    bases_a, bases_b,
 ):
     """Device-local pipeline for (ka, kb)-major ("transposed") input: the
     exact mirror of ``_body_natural_in`` without the final exchange. Output
@@ -171,7 +165,7 @@ def _body_permuted_in(
     ai = ai.reshape(pre + (rows, B))
     # FFT over kb (length B, local fast axis).
     ar, ai = fft_axis(ar, ai, ar.ndim - 1, bases_b, inverse=inverse,
-                      scale=1.0, config=config)
+                      scale=1.0)
     ar, ai = _twiddle_mul(ar, ai, twr, twi)   # T[ka, b], ka-sharded slice
 
     def gather_a(x):  # (rows, B) -> (A, bloc)
@@ -181,7 +175,7 @@ def _body_permuted_in(
 
     ar, ai = gather_a(ar), gather_a(ai)
     ar, ai = fft_axis(ar, ai, ar.ndim - 2, bases_a, inverse=inverse,
-                      scale=scale, config=config)
+                      scale=scale)
 
     def scatter_a(x):  # (A, bloc) -> natural local block (rows_a * B,)
         x = x.reshape(pre + (d, rows, bloc))
@@ -192,7 +186,7 @@ def _body_permuted_in(
 
 
 def _body_gather(
-    ar, ai, *, n, d, axis_name, inverse, scale, config,
+    ar, ai, *, n, d, axis_name, inverse, scale, bases,
 ):
     """Fallback for lengths with d | n but d^2 ∤ n (no four-step exchange
     pattern exists): all_gather the axis, transform locally, keep this
@@ -204,8 +198,8 @@ def _body_gather(
     n_loc = n // d
     ar = jax.lax.all_gather(ar, axis_name, axis=ar.ndim - 1, tiled=True)
     ai = jax.lax.all_gather(ai, axis_name, axis=ai.ndim - 1, tiled=True)
-    ar, ai = fft_axis(ar, ai, ar.ndim - 1, default_bases(n),
-                      inverse=inverse, scale=scale, config=config)
+    ar, ai = fft_axis(ar, ai, ar.ndim - 1, bases,
+                      inverse=inverse, scale=scale)
     idx = jax.lax.axis_index(axis_name)
     ar = jax.lax.dynamic_slice_in_dim(ar, idx * n_loc, n_loc, ar.ndim - 1)
     ai = jax.lax.dynamic_slice_in_dim(ai, idx * n_loc, n_loc, ai.ndim - 1)
@@ -248,34 +242,32 @@ def _build_distributed_fn(
         A, B = 1, n
     else:
         A, B = split_n(n, d) if d > 1 else (1, n)
-    bases_a = default_bases(A) if A > 1 else (1,)
-    bases_b = default_bases(B)
+    bases_a = default_bases(A, config.max_radix) if A > 1 else (1,)
+    bases_b = default_bases(B, config.max_radix)
 
     def body(ar, ai, twr, twi):
         ar = jnp.moveaxis(ar, axis, -1)
         ai = jnp.moveaxis(ai, axis, -1)
         if d == 1:
             outr, outi = fft_axis(
-                ar, ai, ar.ndim - 1, default_bases(n), inverse=inverse,
-                scale=scale, config=config,
+                ar, ai, ar.ndim - 1, bases_b, inverse=inverse, scale=scale,
             )
         elif gather_fallback:
             outr, outi = _body_gather(
                 ar, ai, n=n, d=d, axis_name=axis_name, inverse=inverse,
-                scale=scale, config=config,
+                scale=scale, bases=bases_b,
             )
         elif permuted_in:
             outr, outi = _body_permuted_in(
                 ar, ai, twr, twi, A=A, B=B, d=d, axis_name=axis_name,
                 inverse=inverse, scale=scale, bases_a=bases_a,
-                bases_b=bases_b, config=config,
+                bases_b=bases_b,
             )
         else:
             outr, outi = _body_natural_in(
                 ar, ai, twr, twi, A=A, B=B, d=d, axis_name=axis_name,
                 inverse=inverse, scale=scale, bases_a=bases_a,
                 bases_b=bases_b, natural_out=not permuted_out,
-                config=config,
             )
         return jnp.moveaxis(outr, -1, axis), jnp.moveaxis(outi, -1, axis)
 
@@ -298,9 +290,7 @@ def _build_distributed_fn(
     if d == 1:
         # No collectives in the d==1 branch, so shard_map adds nothing:
         # plain jit with sharding annotations lets the partitioner handle
-        # any batch sharding and keeps the fused kernel on the fast dispatch
-        # path (shard_map dispatch is measurably slower per call on some
-        # runtimes).
+        # any batch sharding.
         d_sh = NamedSharding(mesh, data_p)
         t_sh = NamedSharding(mesh, tw_p)
         return (
@@ -314,7 +304,7 @@ def _build_distributed_fn(
         mesh=mesh,
         in_specs=(data_p, data_p, tw_p, tw_p),
         out_specs=(data_p, data_p),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn), A, B
 
@@ -414,9 +404,7 @@ def rfft_distributed(
     Runs the C2C four-step with a zero imaginary plane and slices the
     Hermitian half afterwards — the XLA partitioner reshards the
     (no-longer-even) output axis. The half-length packing trick would halve
-    the exchange payload but its stride-2 lane deinterleave costs ~10x the
-    transform on TPU (see _tables_r2c, kernels/mxu_fft.py), so the packed
-    form loses on-chip even though it wins on the wire."""
+    the exchange payload; whether it pays on the GPU is not measured."""
     xr = jnp.asarray(x)
     n = xr.shape[axis % xr.ndim]
     out = fft_distributed(

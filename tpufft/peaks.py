@@ -8,7 +8,7 @@ peak_widths, argrelmin/argrelmax/argrelextrema).
 
 Everything here is index bookkeeping over a 1-D host array — O(n)
 scalar scans with data-dependent control flow, which is exactly what
-does NOT belong on an accelerator (no static shapes, no MXU work).
+does NOT belong on an accelerator (no static shapes, no matrix work).
 Implemented as straightforward numpy/Python from the standard
 definitions; the parity tests pin exact index/property equality with
 scipy on adversarial inputs (plateaus, borders, equal heights).

@@ -1,14 +1,14 @@
 """Radix-decomposition planner.
 
 Factorizes transform lengths into ordered radix stage schedules for the
-Stockham autosort FFT. This is the TPU-native analog of the reference's
+Stockham autosort FFT. This is the analog of the reference's
 compile-time planner (``fft/fft/fft.mojo:49-119`` ``_estimate_best_bases[_nd]``
 and the stage-schedule math in ``fft/fft/_utils.mojo:132-221``): everything the
 reference computes with Mojo ``comptime`` happens here in ordinary Python at
 plan/trace time, and ``jax.jit`` specializes per (shape, bases) the same way
 Mojo parameterization does.
 
-Stage model (batch-minor Stockham, see kernels/stockham.py):
+Stage model (batch-minor Stockham, see core.stockham_split_last_axis):
 
     state vector of length N, stage t with radix r and cumulative product s
     ("processed", s_0 = 1) views the state as (r, m, s) with m = N/(r*s) and
@@ -40,10 +40,9 @@ __all__ = [
 
 # Largest radix the default planner will synthesize by merging prime factors.
 # Mirrors the role of ``max_radix_number = 32`` in the reference GPU heuristic
-# (fft/fft/fft.mojo:54) but tuned for the TPU kernel: each radix-r stage costs
-# O(r) multiply-adds per element (as a (r x r) @ (r x N/r*B) matmul or an
-# unrolled VPU butterfly), while stage count falls like log_r(N). Radix 8/16
-# is the sweet spot between per-stage arithmetic and number of VMEM passes.
+# (fft/fft/fft.mojo:54): each radix-r stage costs O(r) multiply-adds per
+# element (an (r x r) contraction), while the stage count, and with it the
+# number of full passes over the planes, falls like log_r(N).
 DEFAULT_MAX_RADIX = 16
 
 
@@ -68,8 +67,9 @@ def factorize(n: int) -> list[int]:
     """Prime factorization of ``n`` in ascending order.
 
     Trial division like the reference's greedy prime loop
-    (fft/fft/fft.mojo:83-104), but unbounded: any prime is supported (no
-    Bluestein fallback — a prime length becomes a single dense-DFT stage).
+    (fft/fft/fft.mojo:83-104), but unbounded: any prime is supported (a
+    prime factor becomes a single dense-DFT stage, or the whole axis runs
+    through Bluestein above execute.BLUESTEIN_MIN_PRIME).
     """
     if n < 1:
         raise ValueError(f"length must be >= 1, got {n}")
@@ -123,60 +123,44 @@ def validate_bases(n: int, bases: Sequence[int]) -> tuple[int, ...]:
     return bases
 
 
-def next_fast_len(n: int, *, aligned: bool = False) -> int:
-    """Smallest length >= n that the fused MXU kernel handles well
-    (scipy.fft.next_fast_len analog, tuned for this hardware).
+# Largest prime the "fast" lengths may contain: radix 2, 3, 5 and 7 stages
+# merge into the planner's small radices (<= 16), so a 7-smooth length never
+# runs a dense prime stage.
+FAST_MAX_PRIME = 7
 
-    A "fast" length factors as A * B with both factors <= 128 (the MXU
-    four-step envelope; any n <= 128 qualifies). With ``aligned=True`` the
-    result is additionally a multiple of 128 — worth the extra padding for
-    batched minor-axis transforms, where non-128-multiple lane widths pay
-    up to 4x in DMA (measured: (1e6, 93) moves at 1/4 the bandwidth of the
-    same bytes 128-aligned).
+
+def _is_fast(m: int) -> bool:
+    for p in (2, 3, 5, 7):
+        while m % p == 0:
+            m //= p
+    return m == 1
+
+
+def next_fast_len(n: int, *, aligned: bool = False) -> int:
+    """Smallest length >= n whose prime factors are all <= FAST_MAX_PRIME
+    (scipy.fft.next_fast_len analog for the Stockham planner).
+
+    With ``aligned=True`` the result is additionally a multiple of 128, so
+    a padded minor axis keeps whole 128-element rows.
     """
     if n <= 1:
         return max(n, 1)
-    from .kernels.mxu_fft import kernel_factors, _divisors  # local: no cycle
-
-    def fast(m: int) -> bool:
-        if kernel_factors(m) is not None:
-            return True
-        # two-pass envelope: m = a*b with both components kernel-supported
-        return any(
-            kernel_factors(d) is not None
-            and kernel_factors(m // d) is not None
-            for d in _divisors(m) if 1 < d * d <= m
-        )
-
     step = 128 if aligned else 1
     m = ((n + step - 1) // step) * step
-    while not fast(m):
+    while not _is_fast(m):
         m += step
     return m
 
 
 def prev_fast_len(n: int, *, aligned: bool = False) -> int:
-    """Largest length <= n that the fused MXU kernel handles well — the
-    scipy.fft.prev_fast_len analog of :func:`next_fast_len` (same "fast"
-    predicate: n = A * B with both factors in the four-step envelope, or a
-    two-pass split of such lengths; ``aligned=True`` additionally requires
-    a multiple of 128, the full-bandwidth DMA lane width)."""
+    """Largest length <= n whose prime factors are all <= FAST_MAX_PRIME —
+    the scipy.fft.prev_fast_len analog of :func:`next_fast_len`
+    (``aligned=True`` additionally requires a multiple of 128)."""
     if n <= 1:
         return max(n, 1)
-    from .kernels.mxu_fft import kernel_factors, _divisors  # local: no cycle
-
-    def fast(m: int) -> bool:
-        if kernel_factors(m) is not None:
-            return True
-        return any(
-            kernel_factors(d) is not None
-            and kernel_factors(m // d) is not None
-            for d in _divisors(m) if 1 < d * d <= m
-        )
-
     step = 128 if aligned else 1
     m = (n // step) * step
-    while m >= step and not fast(m):
+    while m >= step and not _is_fast(m):
         m -= step
     return max(m, 1)
 

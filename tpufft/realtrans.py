@@ -1,13 +1,10 @@
 """Real-to-real transforms: DCT/DST types 1-4 (the rest of the scipy.fft
 surface; the reference is FFT-only — this is a beyond-parity family).
 
-TPU-native design: every DCT/DST is ``y = x @ M`` for a host-precomputed
-(n, n) real matrix — ONE fused rectangular matmul on the MXU, the same
-lesson as the direct r2c kernels (kernels/mxu_fft.py _tables_r2c): the
-classic FFT-composition route (even-odd permutation + 2N-point FFT +
-phase twist) drowns in stride-2 lane gathers on TPU, while the dense
-matmul is a single pass at full MXU occupancy for any n <= 1024 (odd and
-prime included). Larger lengths run the same matmul through XLA.
+Design: every DCT/DST is ``y = x @ M`` for a host-precomputed (n, n) real
+matrix — ONE dense matmul, which XLA hands to the GPU's GEMM library, for
+any n (odd and prime included), at HIGHEST precision (a float32 matmul with
+no precision may run in TF32, ~1e-3 relative).
 
 Matrices are built with float64 trig and match scipy.fft.dct/dst/idct/idst
 bit-for-bit in convention (types 1-4, norm backward/ortho/forward; the
@@ -26,14 +23,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from .config import PlanConfig
 from .core import SplitComplex
-from .kernels import mxu_fft as _mx
-from .kernels.mxu_fft import (_STORAGE_DTYPES, _load_f32, _prep_real,
-                              _rdot3, _split_bf16, logger)
-
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 __all__ = [
     "dct", "idct", "dst", "idst",
@@ -41,7 +31,6 @@ __all__ = [
 ]
 
 _NORMS = (None, "backward", "ortho", "forward")
-R2R_KERNEL_MAX_N = 1024  # same VMEM-constant budget as R2C_MAX_N
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,85 +131,6 @@ def _mat(kind: str, type_: int, n: int, norm: str, inverse: bool):
     return np.ascontiguousarray(m)
 
 
-@functools.lru_cache(maxsize=None)
-def _build_minor_r2r(kind: str, type_: int, n: int, norm: str,
-                     inverse: bool, bblk: int, precision: str,
-                     interpret: bool, storage: str = "f32"):
-    """(batch, n) real -> (batch, n) real: one fused rectangular matmul."""
-    tables = _prep_real(np.asarray(_mat(kind, type_, n, norm, inverse),
-                                   np.float32), precision)
-    out_dt = _STORAGE_DTYPES[storage]
-    logger.debug("mxu_fft minor-r2r: %s%d n=%d norm=%s inv=%s bblk=%d "
-                 "precision=%s", kind, type_, n, norm, inverse, bblk,
-                 precision)
-
-    def kernel(*refs):
-        t_refs = refs[:len(tables)]
-        x_ref, o_ref = refs[len(tables):]
-        w = tuple(r[:] for r in t_refs)
-        x = _load_f32(x_ref)
-        if precision == "bf16x3":
-            xh, xl = _split_bf16(x)
-        else:
-            xh, xl = x, None
-        o_ref[:] = _rdot3(w, precision, xh, xl, right=True).astype(
-            o_ref.dtype)
-
-    data = pl.BlockSpec((bblk, n), lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-    def tspec(t):
-        return pl.BlockSpec(t.shape, (lambda i: (0, 0)),
-                            memory_space=pltpu.VMEM)
-
-    def run(x):
-        batch = x.shape[0]
-        return pl.pallas_call(
-            kernel,
-            grid=(pl.cdiv(batch, bblk),),
-            in_specs=[tspec(t) for t in tables] + [data],
-            out_specs=data,
-            out_shape=jax.ShapeDtypeStruct((batch, n), out_dt),
-            interpret=interpret,
-        )(*[jnp.asarray(t) for t in tables], x)
-
-    return run
-
-
-def _r2r_kernel_ok(n: int, cfg: PlanConfig) -> bool:
-    from .execute import _is_tpu_backend
-
-    if cfg.backend == "xla":
-        return False
-    if not (cfg.interpret or _is_tpu_backend()):
-        return False
-    return 2 <= n <= R2R_KERNEL_MAX_N
-
-
-@functools.lru_cache(maxsize=None)
-def _r2r_diff(kind: str, type_: int, n: int, norm: str, inverse: bool,
-              config: PlanConfig):
-    """Differentiable kernel-path executor: the VJP of y = x @ M is
-    g @ M^T (a second r2r matmul with the transposed table)."""
-    run = _build_minor_r2r(kind, type_, n, norm, inverse, 512,
-                           config.precision, bool(config.interpret))
-
-    @jax.custom_vjp
-    def f(x):
-        return run(x)
-
-    def fwd(x):
-        return f(x), jnp.zeros((0,), x.dtype)
-
-    def bwd(res, g):
-        mt = jnp.asarray(
-            np.ascontiguousarray(
-                _mat(kind, type_, n, norm, inverse).T, np.float32))
-        return (jnp.dot(g.astype(jnp.float32), mt).astype(res.dtype),)
-
-    f.defvjp(fwd, bwd)
-    return f
-
-
 def _resize_minor(x, n):
     cur = x.shape[-1]
     if cur == n:
@@ -231,24 +141,21 @@ def _resize_minor(x, n):
     return jnp.pad(x, pad)
 
 
-def _apply_r2r(x, kind, type_, n, axis, norm, inverse, config):
-    cfg = config or PlanConfig()
+def _apply_r2r(x, kind, type_, n, axis, norm, inverse):
     norm = "backward" if norm is None else norm
     if norm not in ("backward", "ortho", "forward"):
         raise ValueError(f"norm must be one of {_NORMS}, got {norm!r}")
     if isinstance(x, SplitComplex):
         # transform the planes by linearity (the matrices are real)
-        re = _apply_r2r(x.re, kind, type_, n, axis, norm, inverse, config)
-        im = _apply_r2r(x.im, kind, type_, n, axis, norm, inverse, config)
+        re = _apply_r2r(x.re, kind, type_, n, axis, norm, inverse)
+        im = _apply_r2r(x.im, kind, type_, n, axis, norm, inverse)
         return SplitComplex(re, im)
     is_np = not isinstance(x, jax.Array)
     xj = jnp.asarray(x)
     if jnp.issubdtype(xj.dtype, jnp.complexfloating):
         # scipy transforms complex input by linearity
-        re = _apply_r2r(xj.real, kind, type_, n, axis, norm, inverse,
-                        config)
-        im = _apply_r2r(xj.imag, kind, type_, n, axis, norm, inverse,
-                        config)
+        re = _apply_r2r(xj.real, kind, type_, n, axis, norm, inverse)
+        im = _apply_r2r(xj.imag, kind, type_, n, axis, norm, inverse)
         out = jnp.asarray(re) + 1j * jnp.asarray(im)
         return np.asarray(out) if is_np else out
     in_dt = xj.dtype
@@ -264,13 +171,10 @@ def _apply_r2r(x, kind, type_, n, axis, norm, inverse, config):
     xj = _resize_minor(xj, n)
     lead = xj.shape[:-1]
     flat = xj.reshape(math.prod(lead) if lead else 1, n)
-    if not f64 and _r2r_kernel_ok(n, cfg):
-        out = _r2r_diff(kind, type_, n, norm, inverse, cfg)(
-            flat.astype(jnp.float32))
-    else:
-        m = jnp.asarray(_mat(kind, type_, n, norm, inverse),
-                        jnp.float64 if f64 else jnp.float32)
-        out = jnp.dot(flat.astype(m.dtype), m)
+    m = jnp.asarray(_mat(kind, type_, n, norm, inverse),
+                    jnp.float64 if f64 else jnp.float32)
+    out = jnp.dot(flat.astype(m.dtype), m,
+                  precision=jax.lax.Precision.HIGHEST)
     out = out.reshape(lead + (n,)).astype(
         in_dt if jnp.issubdtype(in_dt, jnp.floating) else jnp.float32)
     if moved:
@@ -278,25 +182,25 @@ def _apply_r2r(x, kind, type_, n, axis, norm, inverse, config):
     return np.asarray(out) if is_np else out
 
 
-def dct(x, type=2, n=None, axis=-1, norm=None, *, config=None):
+def dct(x, type=2, n=None, axis=-1, norm=None):
     """Discrete cosine transform (scipy.fft.dct-compatible, types 1-4)."""
-    return _apply_r2r(x, "dct", int(type), n, axis, norm, False, config)
+    return _apply_r2r(x, "dct", int(type), n, axis, norm, False)
 
 
-def idct(x, type=2, n=None, axis=-1, norm=None, *, config=None):
-    return _apply_r2r(x, "dct", int(type), n, axis, norm, True, config)
+def idct(x, type=2, n=None, axis=-1, norm=None):
+    return _apply_r2r(x, "dct", int(type), n, axis, norm, True)
 
 
-def dst(x, type=2, n=None, axis=-1, norm=None, *, config=None):
+def dst(x, type=2, n=None, axis=-1, norm=None):
     """Discrete sine transform (scipy.fft.dst-compatible, types 1-4)."""
-    return _apply_r2r(x, "dst", int(type), n, axis, norm, False, config)
+    return _apply_r2r(x, "dst", int(type), n, axis, norm, False)
 
 
-def idst(x, type=2, n=None, axis=-1, norm=None, *, config=None):
-    return _apply_r2r(x, "dst", int(type), n, axis, norm, True, config)
+def idst(x, type=2, n=None, axis=-1, norm=None):
+    return _apply_r2r(x, "dst", int(type), n, axis, norm, True)
 
 
-def _apply_nd(fn, x, type, s, axes, norm, config):
+def _apply_nd(fn, x, type, s, axes, norm):
     shape = np.shape(x)
     ndim = len(shape)
     if axes is None:
@@ -311,23 +215,23 @@ def _apply_nd(fn, x, type, s, axes, norm, config):
         raise ValueError(f"len(s)={len(s)} must equal len(axes)={len(axes)}")
     out = x
     for a, n in zip(axes, s):
-        out = fn(out, type=type, n=n, axis=a, norm=norm, config=config)
+        out = fn(out, type=type, n=n, axis=a, norm=norm)
     return out
 
 
-def dctn(x, type=2, s=None, axes=None, norm=None, *, config=None):
+def dctn(x, type=2, s=None, axes=None, norm=None):
     """N-dimensional DCT (scipy.fft.dctn-compatible)."""
-    return _apply_nd(dct, x, type, s, axes, norm, config)
+    return _apply_nd(dct, x, type, s, axes, norm)
 
 
-def idctn(x, type=2, s=None, axes=None, norm=None, *, config=None):
-    return _apply_nd(idct, x, type, s, axes, norm, config)
+def idctn(x, type=2, s=None, axes=None, norm=None):
+    return _apply_nd(idct, x, type, s, axes, norm)
 
 
-def dstn(x, type=2, s=None, axes=None, norm=None, *, config=None):
+def dstn(x, type=2, s=None, axes=None, norm=None):
     """N-dimensional DST (scipy.fft.dstn-compatible)."""
-    return _apply_nd(dst, x, type, s, axes, norm, config)
+    return _apply_nd(dst, x, type, s, axes, norm)
 
 
-def idstn(x, type=2, s=None, axes=None, norm=None, *, config=None):
-    return _apply_nd(idst, x, type, s, axes, norm, config)
+def idstn(x, type=2, s=None, axes=None, norm=None):
+    return _apply_nd(idst, x, type, s, axes, norm)

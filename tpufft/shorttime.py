@@ -17,15 +17,8 @@ Design (tpufft conventions, not a translation of scipy's loops):
   (:func:`tpufft.api.rfft` / :func:`fft`). numpy input returns numpy and
   executes on the host backend — scipy-exact (1e-12-class) when jax x64
   is enabled, float32 with a :class:`PrecisionDowngradeWarning`
-  otherwise. jax input rides the MXU kernel path with split re/im
-  planes — complex results on complex-free backends come back as
-  :class:`tpufft.SplitComplex`. On TPU, onesided real-input stft/istft
-  whose geometry satisfies the fused-kernel gates (``hop % 128 == 0``,
-  ``m_num % hop == 0``, ``mfft <= 1024``) route through the fused
-  overlapped-frame / overlap-add Pallas kernels
-  (:func:`tpufft.kernels.mxu_fft.build_stft_overlap` /
-  ``build_istft_ola``) — the window, phase roll, mode scaling and DFT
-  fold into one host matrix, so no frame tensor is ever materialized.
+  otherwise. jax input runs on the device through the same transforms
+  and returns device arrays.
 * The overlap-add inverse is a single scatter-add (``np.add.at`` /
   ``jnp .at[].add``) of all dual-windowed inverse frames — no per-slice
   Python loop on device.
@@ -34,9 +27,9 @@ Design (tpufft conventions, not a translation of scipy's loops):
   ``DD[k] = sum_j |w[k - j*hop]|^2`` (host f64 plan-time math, same
   discipline as twiddle tables).
 
-The reference (martinvuyk/hackathon-fft) has no short-time layer; the
-fused Pallas STFT kernels live in tpufft.spectral — this class is the
-index-exact scipy-compatible surface on top of the same transform core.
+The reference (martinvuyk/hackathon-fft) has no short-time layer; this
+class is the index-exact scipy-compatible surface on top of the same
+transform core as tpufft.spectral.
 """
 
 from __future__ import annotations
@@ -49,7 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from . import api
-from .core import SplitComplex, backend_supports_complex
+from .core import SplitComplex
 
 __all__ = ["ShortTimeFFT", "closest_STFT_dual_window"]
 
@@ -193,9 +186,7 @@ class ShortTimeFFT:
                 raise ValueError("dual_win must have the same shape as win")
         self._dual_win = dual_win
         self._scaling = None
-        self._config = config          # PlanConfig for the device path
-        self._win_version = 0          # bumped by scale_to (matrix cache)
-        self._mat_cache: dict = {}
+        self._config = config          # PlanConfig of the transforms
         if scale_to is not None:
             self.scale_to(scale_to)
         if fft_mode == "onesided2X" and self._scaling is None:
@@ -329,8 +320,6 @@ class ShortTimeFFT:
         if self._dual_win is not None:
             self._dual_win = self._dual_win / s
         self._scaling = scaling
-        self._win_version += 1
-        self._mat_cache.clear()
 
     # -- index bookkeeping (scipy-exact, see module docstring) ---------
     # The border loops below are zero-aware: a window with zero head or
@@ -496,171 +485,6 @@ class ShortTimeFFT:
                + np.arange(self.m_num)[None, :])
         return xpad[..., idx]
 
-    # -- fused Pallas kernel path (TPU) ---------------------------------
-    def _fused_stft_ok(self, x, detr) -> bool:
-        """Gate for the fused overlapped-frame kernel (see module
-        docstring): real jax input, onesided mode, real window,
-        foldable detrend, and the kernel geometry gates."""
-        from .execute import _is_tpu_backend
-        from .kernels import mxu_fft
-
-        cfg = self._config or api.PlanConfig()
-        if isinstance(x, SplitComplex) or not _is_jax(x):
-            return False
-        if jnp.dtype(x.dtype) not in (jnp.dtype(jnp.float32),
-                                      jnp.dtype(jnp.bfloat16)):
-            return False
-        if not self.onesided_fft or np.iscomplexobj(self._win):
-            return False
-        if detr is not None and detr not in ("constant", "linear"):
-            return False
-        if cfg.backend == "xla" or not (cfg.interpret or _is_tpu_backend()):
-            return False
-        return mxu_fft.stft_overlap_supported(self.m_num, self._hop,
-                                              self._mfft, jnp.float32, cfg)
-
-    def _fused_stft_matrix(self, detr) -> np.ndarray:
-        """The whole _fft_func as ONE (m_num, m1) complex matrix:
-        detrend projector, conj window, zero-pad, phase roll (a constant
-        shift in the DFT exponent), onesided rDFT and the onesided2X
-        scaling are all linear maps (f64 host trig)."""
-        key = ("stft", detr, self._win_version)
-        M = self._mat_cache.get(key)
-        if M is not None:
-            return M
-        m = self.m_num
-        m1 = self._mfft // 2 + 1
-        p_s = 0
-        if self._phase_shift is not None:
-            p_s = (self._phase_shift + self.m_num_mid) % m
-        j = np.arange(m, dtype=np.float64)
-        k = np.arange(m1, dtype=np.float64)
-        theta = (-2.0 * np.pi / self._mfft) * np.outer(j - p_s, k)
-        M = np.conj(self._win)[:, None] * np.exp(1j * theta)
-        if detr == "constant":
-            # detrend acts on the RAW frame: out = f @ (D @ M) with the
-            # symmetric projector D = I - 11^T/m
-            M = M - M.mean(axis=0)[None, :]
-        elif detr == "linear":
-            A = np.stack([np.ones(m), j - (m - 1) / 2.0], axis=1)
-            M = M - A @ (np.linalg.pinv(A) @ M)
-        if self._fft_mode == "onesided2X":
-            fac = math.sqrt(2) if self._scaling == "psd" else 2.0
-            sl = slice(1, -1 if self._mfft % 2 == 0 else None)
-            M[:, sl] *= fac
-        self._mat_cache[key] = M
-        return M
-
-    def _fused_stft(self, x, detr, p0: int, p1: int, k_offset: int,
-                    padding: str):
-        """(..., p, f) SplitComplex via build_stft_overlap: frames
-        stream straight from the (padded) signal in HBM — no gather, no
-        materialized frame tensor."""
-        from .spectral import _stft_fused_mat
-
-        xpad, start = self._padded(x, p0, p1, k_offset, padding)
-        nseg = p1 - p0
-        K = self.m_num // self._hop
-        n_sig = (nseg + K - 1) * self._hop   # == (nseg-1)*hop + m_num
-        xs = xpad[..., start:start + n_sig]
-        lead = xs.shape[:-1]
-        flat = math.prod(lead) if lead else 1
-        x2 = xs.reshape(flat, n_sig).astype(jnp.float32)
-        # cache the built runner per (detr, win version) — re-serializing
-        # the matrix just to hit _stft_fused_mat's lru key hashes
-        # megabytes on every eager call
-        fk_key = ("stft_fk", detr, self._win_version)
-        fk = self._mat_cache.get(fk_key)
-        if fk is None:
-            M = self._fused_stft_matrix(detr)
-            fk = _stft_fused_mat(
-                np.ascontiguousarray(M.real, np.float32).tobytes(),
-                np.ascontiguousarray(M.imag, np.float32).tobytes(),
-                self.m_num, M.shape[1], self._hop, self._config)
-            self._mat_cache[fk_key] = fk
-        Xr, Xi = fk(x2)
-        m1 = Xr.shape[-1]
-        return SplitComplex(Xr.reshape(lead + (nseg, m1)),
-                            Xi.reshape(lead + (nseg, m1)))
-
-    def _fused_istft_ok(self, S) -> bool:
-        from .execute import _is_tpu_backend
-        from .kernels.mxu_fft import istft_ola_supported
-
-        cfg = self._config or api.PlanConfig()
-        if not (isinstance(S, SplitComplex) or _is_jax(S)):
-            return False
-        if not self.onesided_fft or np.iscomplexobj(self._win) \
-                or np.iscomplexobj(self.dual_win):
-            return False
-        if cfg.backend == "xla" or not (cfg.interpret or _is_tpu_backend()):
-            return False
-        return istft_ola_supported(self.m_num, self._hop, self._mfft, cfg)
-
-    def _fused_istft_matrix(self) -> np.ndarray:
-        """The whole _ifft_func + dual-window synthesis as ONE
-        (m1, m_num) complex matrix A with the kernel contract
-        x = Zr @ A.real + Zi @ A.imag (the real part of the Hermitian
-        inverse): onesided2X unscale folds into the doubling
-        coefficients, the phase roll into the exponent."""
-        key = ("istft", self._win_version)
-        A = self._mat_cache.get(key)
-        if A is not None:
-            return A
-        m1 = self._mfft // 2 + 1
-        p_s = 0
-        if self._phase_shift is not None:
-            p_s = (self._phase_shift + self.m_num_mid) % self.m_num
-        k = np.arange(m1, dtype=np.float64)
-        t = np.arange(self.m_num, dtype=np.float64)
-        c = np.full(m1, 2.0)
-        c[0] = 1.0
-        if self._mfft % 2 == 0:
-            c[-1] = 1.0
-        if self._fft_mode == "onesided2X":
-            fac = math.sqrt(2) if self._scaling == "psd" else 2.0
-            sl = slice(1, -1 if self._mfft % 2 == 0 else None)
-            c[sl] /= fac
-        theta = (2.0 * np.pi / self._mfft) * np.outer(k, t - p_s)
-        scale = (c / self._mfft)[:, None] * self.dual_win[None, :]
-        A = scale * np.cos(theta) - 1j * (scale * np.sin(theta))
-        self._mat_cache[key] = A
-        return A
-
-    def _fused_istft(self, S, k0: int, k1: int, fa: int, ta: int,
-                     ndim: int):
-        """Overlap-add inverse via build_istft_ola: S is already
-        (..., f, p)-normalized; returns the [k0, k1) signal window."""
-        from .spectral import _istft_fused_mat
-
-        if isinstance(S, SplitComplex):
-            zr, zi = S.re, S.im
-        else:
-            zr, zi = jnp.real(S), jnp.imag(S)
-        lead = zr.shape[:-2]
-        m1, q_num = zr.shape[-2], zr.shape[-1]
-        flat = math.prod(lead) if lead else 1
-        # (..., m1, q) -> segment-major (q, flat, m1)
-        zr = jnp.transpose(zr.reshape(flat, m1, q_num), (2, 0, 1))
-        zi = jnp.transpose(zi.reshape(flat, m1, q_num), (2, 0, 1))
-        fk_key = ("istft_fk", self._win_version)
-        fk = self._mat_cache.get(fk_key)
-        if fk is None:
-            A = self._fused_istft_matrix()
-            fk = _istft_fused_mat(
-                np.ascontiguousarray(A.real, np.float32).tobytes(),
-                np.ascontiguousarray(A.imag, np.float32).tobytes(),
-                m1, self.m_num, self._hop, self._config)
-            self._mat_cache[fk_key] = fk
-        out = fk(zr.astype(jnp.float32), zi.astype(jnp.float32))
-        # kernel output sample i is signal sample k_min + i
-        out = out[..., k0 - self.k_min:k1 - self.k_min]
-        out = out.reshape(lead + (k1 - k0,))
-        if out.ndim > 1:
-            dst = fa if fa < out.ndim else ta
-            out = jnp.moveaxis(out, -1, dst)
-        return out
-
     def _win_mod(self) -> np.ndarray:
         """conj(win), zero-padded to mfft and phase-rolled (host f64).
 
@@ -688,16 +512,9 @@ class ShortTimeFFT:
             if p_s:
                 fr = xp.roll(fr, -p_s, axis=-1)
         wm = self._win_mod()
-        if (not np.iscomplexobj(wm) or xp is np
-                or backend_supports_complex()):
-            fr = fr * (wm if xp is np else jnp.asarray(wm))
-        else:
-            # complex window on a complex-free device backend: two real
-            # multiplies (complex jax input cannot exist there)
-            fr = SplitComplex(fr * jnp.asarray(wm.real),
-                              fr * jnp.asarray(wm.imag))
+        fr = fr * (wm if xp is np else jnp.asarray(wm))
         if self.onesided_fft:
-            X = api.rfft(fr, self._mfft)
+            X = api.rfft(fr, self._mfft, config=self._config)
             if xp is np and isinstance(X, jax.Array):
                 # numpy in -> numpy out (the CPU backend has complex
                 # dtypes, so the api returns a jax array there); copy —
@@ -717,7 +534,7 @@ class ShortTimeFFT:
                         X = X.copy()
                     X[..., sl] *= fac
             return X
-        X = api.fft(fr, self._mfft)
+        X = api.fft(fr, self._mfft, config=self._config)
         if xp is np and isinstance(X, jax.Array):
             X = np.asarray(X)
         if self._fft_mode == "centered":
@@ -745,7 +562,7 @@ class ShortTimeFFT:
                     X[..., sl] /= fac
                 else:
                     X = X.at[..., sl].divide(fac)
-            fr = api.irfft(X, self._mfft)
+            fr = api.irfft(X, self._mfft, config=self._config)
         else:
             if self._fft_mode == "centered":
                 sh = -(self._mfft // 2)
@@ -754,7 +571,7 @@ class ShortTimeFFT:
                                      jnp.roll(X.im, sh, axis=-1))
                 else:
                     X = xp.roll(X, sh, axis=-1)
-            fr = api.ifft(X, self._mfft)
+            fr = api.ifft(X, self._mfft, config=self._config)
         if xp is np and isinstance(fr, jax.Array):
             # numpy in -> numpy out (see _fft_frames)
             fr = np.asarray(fr)
@@ -800,17 +617,14 @@ class ShortTimeFFT:
             raise ValueError("detr must be 'linear', 'constant', or "
                              "a callable")
         p0, p1 = self.p_range(x.shape[-1], p0, p1)
-        if not callable(detr) and self._fused_stft_ok(x, detr):
-            X = self._fused_stft(x, detr, p0, p1, k_offset, padding)
-        else:
-            fr = self._frames(x, p0, p1, k_offset, padding)
-            if detr is not None:
-                if callable(detr):
-                    fr = detr(fr)
-                else:
-                    from .sigtools import detrend as _detrend
-                    fr = _detrend(fr, type=detr, axis=-1)
-            X = self._fft_frames(fr)
+        fr = self._frames(x, p0, p1, k_offset, padding)
+        if detr is not None:
+            if callable(detr):
+                fr = detr(fr)
+            else:
+                from .sigtools import detrend as _detrend
+                fr = _detrend(fr, type=detr, axis=-1)
+        X = self._fft_frames(fr)
 
         # (..., p, f) -> (..., f, p); then the frequency axis replaces
         # the data axis (scipy: time slices always trail)
@@ -876,8 +690,6 @@ class ShortTimeFFT:
         if k1 - k0 < n_min:
             raise ValueError(f"k1 - k0 = {k1 - k0} must be at least half "
                              f"the window length ({n_min})")
-        if self._fused_istft_ok(S):
-            return self._fused_istft(S, k0, k1, fa, ta, ndim)
         # (..., f, p) -> (..., p, f) -> inverse frames (..., p, m_num)
         if is_split:
             S = SplitComplex(jnp.swapaxes(S.re, -1, -2),

@@ -2,13 +2,12 @@
 layer on top of the plan machinery — beyond reference parity; the
 reference stops at raw transforms).
 
-TPU-native design: a circular filter ``y = ifft(fft(x) * H)`` along one
-axis is a LINEAR map, so the whole three-pass pipeline collapses at plan
-time into one circulant matrix ``C[j, m] = c[(m - j) mod n]`` (``c`` the
-impulse response) and executes as a SINGLE fused MXU matmul pass
-(`kernels/mxu_fft.build_minor_dense`) — one HBM round-trip instead of
-three. The classic composition (transform, pointwise multiply, inverse)
-remains as the fallback for long axes and the float64 CPU path.
+Design: a circular filter ``y = ifft(fft(x) * H)`` along one axis is a
+LINEAR map, so for short axes the whole three-pass pipeline collapses at
+plan time into one circulant matrix ``C[j, m] = c[(m - j) mod n]`` (``c``
+the impulse response) and executes as a SINGLE dense matmul — one pass
+over the data instead of three. The classic composition (transform,
+pointwise multiply, inverse) serves long axes and the float64 host path.
 
 ``fftconvolve`` follows scipy.signal.fftconvolve semantics (modes
 full/same/valid, axes subsets, broadcasting on non-convolved axes) and
@@ -25,17 +24,21 @@ import jax.numpy as jnp
 import numpy as np
 
 from .config import PlanConfig
-from .core import SplitComplex, backend_supports_complex
-from .kernels import mxu_fft
+from .core import SplitComplex
 from .planner import next_fast_len
 
 __all__ = ["plan_filter", "FilterPlan", "fftconvolve", "oaconvolve",
            "hilbert", "hilbert2", "resample", "correlate", "envelope"]
 
 # Largest axis run as a dense circulant matmul; beyond it the plan
-# composes fft -> multiply -> ifft (measured on-chip crossover, see
-# FilterPlan._use_dense).
-FILTER_DENSE_MAX_N = 512
+# composes fft -> multiply -> ifft. The dense matmul is O(n^2) work against
+# the composed transforms' O(n log n) and three passes over the data.
+# ``bench_suite.py --decisions`` times both at 64M c64 elements: on an H100
+# 80GB HBM3 at a 400 W power limit the dense form won at every n measured,
+# 128 to 1024 (12.4 vs 19.0 ms at 1024); above 1024 it is not measured.
+FILTER_DENSE_MAX_N = 1024
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 # ----------------------------------------------------------------------------
@@ -54,8 +57,7 @@ class FilterPlan:
     """One-axis circular filter, callable like a transform plan.
 
     Accepts complex numpy/jax arrays, real arrays, or SplitComplex planes;
-    returns the matching flavor. Differentiable (custom VJP = the
-    transposed-matrix multiply).
+    returns the matching flavor. Differentiable by ordinary autodiff.
     """
 
     def __init__(self, n: int, c_time: np.ndarray, axis: int,
@@ -70,8 +72,6 @@ class FilterPlan:
         self._hi = np.ascontiguousarray(H.imag, np.float64)
         self._real_matrix = bool(np.max(np.abs(c.imag)) < 1e-12 * max(
             1.0, float(np.max(np.abs(c)))))
-        self._kernel = None
-        self._kernel_real = None
         # The O(n^2) circulant exists ONLY on the dense path: a long-axis
         # plan (e.g. hilbert over a 100k-sample signal) must not
         # materialize — or hold for its lifetime — an n x n float64
@@ -81,70 +81,31 @@ class FilterPlan:
             C = _circulant(c)
             self._cr = np.ascontiguousarray(C.real, np.float64)
             self._ci = np.ascontiguousarray(C.imag, np.float64)
-            if self._kernel_backend():
-                self._kernel = mxu_fft.build_minor_dense(
-                    self._cr.astype(np.float32),
-                    self._ci.astype(np.float32),
-                    512, config.precision, bool(config.interpret))
-                if self._real_matrix:
-                    # Hermitian response on real input: the circulant is
-                    # real, so the whole filter is ONE real matmul — half
-                    # the MXU work and half the input traffic of the
-                    # complex form.
-                    self._kernel_real = mxu_fft.build_minor_dense_real(
-                        self._cr.astype(np.float32), 512,
-                        config.precision, bool(config.interpret))
         self._diff = self._make_diff()
         self._diff_real = (self._make_diff_real()
                            if self._real_matrix and self._use_dense()
                            else None)
-        # jit the whole plane application (moveaxis + reshape + kernel):
+        # jit the whole plane application (moveaxis + reshape + matmul):
         # eager dispatch pays per-op host->device round-trips
         self._apply_jit = jax.jit(self._apply_planes_impl)
         self._apply_real_jit = jax.jit(self._apply_real_impl)
 
-    def _kernel_backend(self) -> bool:
-        from .execute import _is_tpu_backend
-
-        cfg = self.config
-        if cfg.backend == "xla":
-            return False
-        return cfg.interpret or _is_tpu_backend()
-
     def _use_dense(self) -> bool:
-        # Measured on-chip crossover: the dense circulant matmul is O(n^2)
-        # compute vs the composed transforms' O(n log n), and the saved
-        # HBM pass stops paying once the matmul goes compute-bound —
-        # fused wins 2.9x at n=128, 2.5x at 256, ties at 480, loses at
-        # 1024. XLA/CPU backends follow the same rule (a dense matmul
-        # beats separate fft calls for short axes there too).
         return 2 <= self.n <= FILTER_DENSE_MAX_N
 
     def _make_diff(self):
         if self._use_dense():
             cr32 = jnp.asarray(self._cr, jnp.float32)
             ci32 = jnp.asarray(self._ci, jnp.float32)
-            kernel = self._kernel
 
-            @jax.custom_vjp
             def f(xr, xi):
-                if kernel is not None:
-                    return tuple(kernel(xr, xi))
-                yr = jnp.dot(xr, cr32) - jnp.dot(xi, ci32)
-                yi = jnp.dot(xr, ci32) + jnp.dot(xi, cr32)
+                def dot(a, b):
+                    return jnp.dot(a, b, precision=_HIGHEST)
+
+                yr = dot(xr, cr32) - dot(xi, ci32)
+                yi = dot(xr, ci32) + dot(xi, cr32)
                 return yr, yi
 
-            def fwd(xr, xi):
-                return f(xr, xi), None
-
-            def bwd(_, g):
-                gr, gi = g
-                # forward planes map: yr = xr Cr - xi Ci; yi = xr Ci + xi Cr
-                gxr = jnp.dot(gr, cr32.T) + jnp.dot(gi, ci32.T)
-                gxi = jnp.dot(gi, cr32.T) - jnp.dot(gr, ci32.T)
-                return gxr, gxi
-
-            f.defvjp(fwd, bwd)
             return f
 
         # long axes: compose fft -> pointwise H -> ifft on planes (each
@@ -155,36 +116,25 @@ class FilterPlan:
         bases = tuple(default_bases(self.n))
         hr = jnp.asarray(self._hr, jnp.float32)
         hi = jnp.asarray(self._hi, jnp.float32)
-        cfg = self.config
         inv_scale = 1.0 / self.n
 
         def f(xr, xi):
-            Xr, Xi = fft_axis(xr, xi, 1, bases, inverse=False, scale=1.0,
-                              config=cfg)
+            Xr, Xi = fft_axis(xr, xi, 1, bases, inverse=False, scale=1.0)
             Yr = Xr * hr - Xi * hi
             Yi = Xr * hi + Xi * hr
-            return fft_axis(Yr, Yi, 1, bases, inverse=True,
-                            scale=inv_scale, config=cfg)
+            return fft_axis(Yr, Yi, 1, bases, inverse=True, scale=inv_scale)
 
         return f
 
     def _make_diff_real(self):
+        # Hermitian response on real input: the circulant is real, so the
+        # whole filter is ONE real matmul — half the work and half the
+        # input traffic of the complex form.
         cr32 = jnp.asarray(self._cr, jnp.float32)
-        kernel = self._kernel_real
 
-        @jax.custom_vjp
         def f(x):
-            if kernel is not None:
-                return kernel(x)
-            return jnp.dot(x, cr32)
+            return jnp.dot(x, cr32, precision=_HIGHEST)
 
-        def fwd(x):
-            return f(x), None
-
-        def bwd(_, g):
-            return (jnp.dot(g, cr32.T),)
-
-        f.defvjp(fwd, bwd)
         return f
 
     # -- application ---------------------------------------------------------
@@ -234,8 +184,7 @@ class FilterPlan:
             yr, yi = self._apply_planes(x.re, x.im)
             return SplitComplex(yr, yi)
         is_np = not isinstance(x, jax.Array)
-        f64_host = jax.config.jax_enable_x64 \
-            and jax.default_backend() == "cpu"
+        f64_host = jax.config.jax_enable_x64
 
         def _f64_pipeline(xn):
             # f64 tier (1e-12): host numpy fft*H*ifft — exact for any n,
@@ -251,7 +200,6 @@ class FilterPlan:
             xn = np.asarray(x)
             if xn.dtype == np.complex128 and f64_host:
                 return _f64_pipeline(xn)
-            # split on HOST: the TPU backend has no complex dtypes
             yr, yi = self._apply_planes(
                 jnp.asarray(np.ascontiguousarray(xn.real), jnp.float32),
                 jnp.asarray(np.ascontiguousarray(xn.imag), jnp.float32))
@@ -259,15 +207,8 @@ class FilterPlan:
                     + 1j * np.asarray(yi))
         xj = jnp.asarray(x)
         if jnp.issubdtype(xj.dtype, jnp.complexfloating):
-            # complex jax arrays only exist on the CPU backend
             yr, yi = self._apply_planes(jnp.real(xj), jnp.imag(xj))
             return yr.astype(jnp.complex64) + 1j * yi.astype(jnp.complex64)
-        if not self._real_matrix and not is_np \
-                and not backend_supports_complex():
-            # device input on a complex-free backend: stay on device as
-            # planes (mirrors api.Plan's contract — no hidden host trip)
-            yr, yi = self._apply_planes(xj, jnp.zeros_like(xj))
-            return SplitComplex(yr, yi)
         # real input: if the filter matrix is real the output is real
         if self._real_matrix:
             if xj.shape[self.axis % xj.ndim] != self.n:
@@ -277,7 +218,7 @@ class FilterPlan:
             if is_np and np.dtype(np.asarray(x).dtype) == np.float64 \
                     and f64_host:
                 # keep the f64 tier for float64 input like the c128 path
-                # (the jitted kernels are the f32 tier)
+                # (the jitted planes are the f32 tier)
                 return np.real(_f64_pipeline(np.asarray(x)))
             if self._diff_real is not None:
                 # single REAL matmul — no imaginary plane at all
@@ -289,7 +230,7 @@ class FilterPlan:
                             else jnp.float32)
             return np.asarray(out) if is_np else out
         yr, yi = self._apply_planes(xj, jnp.zeros_like(xj))
-        if is_np:  # combine on HOST — the backend may lack complex dtypes
+        if is_np:
             return (np.asarray(yr).astype(np.complex64)
                     + 1j * np.asarray(yi))
         return yr.astype(jnp.complex64) + 1j * yi.astype(jnp.complex64)
@@ -305,9 +246,9 @@ def plan_filter(n: int, response=None, *, impulse=None, axis: int = -1,
     real array returns a real array.
 
     The pipeline is folded into one circulant matrix at plan time and runs
-    as a single fused MXU matmul pass for n <= FILTER_DENSE_MAX_N (512)
-    on the kernel path (vs three HBM passes for fft -> multiply -> ifft);
-    past the measured crossover it composes the transforms instead.
+    as a single dense matmul for n <= FILTER_DENSE_MAX_N (vs three passes
+    for fft -> multiply -> ifft); past the crossover it composes the
+    transforms instead.
     """
     if (response is None) == (impulse is None):
         raise ValueError("give exactly one of response= or impulse=")
@@ -361,14 +302,13 @@ def fftconvolve(in1, in2, mode: str = "full", axes=None, *,
                 config: PlanConfig | None = None):
     """N-D convolution via FFT — scipy.signal.fftconvolve-compatible
     (modes "full"/"same"/"valid", axes subsets, broadcasting on
-    non-convolved axes). Real inputs run the r2c kernel path; lengths pad
-    to kernel-fast sizes (`next_fast_len`)."""
+    non-convolved axes). Real inputs run the packed r2c path; lengths pad
+    to 7-smooth sizes (`next_fast_len`)."""
     from . import api
 
     is_np = not (isinstance(in1, jax.Array) or isinstance(in2, jax.Array))
-    # numpy callers stay numpy end-to-end (the api layer handles device
-    # dispatch and combines complex results on the host — the TPU backend
-    # stores no complex dtypes); jax callers keep device residency.
+    # numpy callers stay numpy end-to-end; jax callers keep device
+    # residency.
     xp = np if is_np else jnp
     a = xp.asarray(in1)
     b = xp.asarray(in2)
@@ -399,29 +339,10 @@ def fftconvolve(in1, in2, mode: str = "full", axes=None, *,
     real = not (np.issubdtype(np.dtype(a.dtype), np.complexfloating)
                 or np.issubdtype(np.dtype(b.dtype), np.complexfloating))
     kw = dict(s=tuple(fast), axes=axes, config=config)
-
-    def _cmul(A, B):
-        # device inputs on a complex-free backend yield SplitComplex
-        # spectra — multiply the planes directly, no host round-trip
-        if isinstance(A, SplitComplex):
-            return SplitComplex(A.re * B.re - A.im * B.im,
-                                A.re * B.im + A.im * B.re)
-        return A * B
-
     if real:
-        fa = api.rfftn(a, **kw)
-        fb = api.rfftn(b, **kw)
-        conv = api.irfftn(_cmul(fa, fb), **kw)
+        conv = api.irfftn(api.rfftn(a, **kw) * api.rfftn(b, **kw), **kw)
     else:
-        fa = api.fftn(a, **kw)
-        fb = api.fftn(b, **kw)
-        conv = api.ifftn(_cmul(fa, fb), **kw)
-    if isinstance(conv, SplitComplex):
-        conv = conv.re if real else conv
-    if isinstance(conv, SplitComplex):
-        raise NotImplementedError(
-            "complex fftconvolve with device-resident inputs needs a "
-            "complex-capable backend; pass numpy arrays instead")
+        conv = api.ifftn(api.fftn(a, **kw) * api.fftn(b, **kw), **kw)
     conv = xp.asarray(conv)
     # crop the fast-length padding back to the full linear-conv shape
     sl = [slice(None)] * conv.ndim
@@ -470,9 +391,8 @@ def hilbert(x, N: int | None = None, axis: int = -1, *,
     real part is x and imaginary part its Hilbert transform.
 
     The whole ifft(fft(x) * h) pipeline runs through ``plan_filter`` —
-    one fused MXU matmul pass for N <= 512. Numpy input returns numpy
-    complex; a device array on a complex-free backend (TPU) returns
-    SplitComplex planes (no hidden host transfer)."""
+    one dense matmul for N <= FILTER_DENSE_MAX_N. Numpy input returns
+    numpy complex; a device array returns a complex device array."""
     is_np = not isinstance(x, jax.Array)
     xp = np if is_np else jnp
     xj = xp.asarray(x)
@@ -492,8 +412,7 @@ def hilbert(x, N: int | None = None, axis: int = -1, *,
             pad = [(0, 0)] * xj.ndim
             pad[ax] = (0, N - n0)
             xj = xp.pad(xj, pad)
-    # numpy stays numpy end-to-end: the plan then combines the complex
-    # result on the host (the TPU backend has no complex dtypes)
+    # numpy stays numpy end-to-end: the plan combines on the host
     return _hilbert_plan(N, axis % xj.ndim, config)(xj)
 
 
@@ -502,9 +421,9 @@ def hilbert2(x, N=None, axes=(-2, -1), *,
     """2-D analytic signal (scipy.signal.hilbert2-compatible): real
     input -> complex output via fft2, the separable h1 (x) h2 one-sided
     doubling mask, and ifft2 — the mask multiply fuses into the
-    surrounding passes as one elementwise expression on split planes.
-    Numpy in -> numpy complex out; a device array on a complex-free
-    backend (TPU) returns SplitComplex planes."""
+    surrounding passes as one elementwise expression.
+    Numpy in -> numpy complex out; a device array in -> a complex device
+    array out."""
     from . import api
 
     is_np = not isinstance(x, jax.Array)
@@ -539,11 +458,7 @@ def hilbert2(x, N=None, axes=(-2, -1), *,
     X = api.fft2(xj, s=N, axes=(ax0, ax1), config=config)
     shape = [1] * xj.ndim
     shape[ax0], shape[ax1] = N
-    if isinstance(X, SplitComplex):
-        hj = jnp.asarray(h.astype(np.float32)).reshape(shape)
-        Y = SplitComplex(X.re * hj, X.im * hj)
-    else:
-        Y = X * xp.asarray(h.reshape(shape)).astype(X.dtype)
+    Y = X * xp.asarray(h.reshape(shape)).astype(X.dtype)
     return api.ifft2(Y, axes=(ax0, ax1), config=config)
 
 
@@ -555,8 +470,7 @@ def resample(x, num: int, axis: int = 0, *,
     length, scale by num/N. Real input -> real output."""
     from . import api
 
-    is_np = not isinstance(x, jax.Array)
-    host = is_np or not backend_supports_complex()
+    host = not isinstance(x, jax.Array)
     xn = np.asarray(x) if host else x
     real = not np.issubdtype(np.dtype(xn.dtype), np.complexfloating)
     ax = axis % xn.ndim
@@ -565,8 +479,7 @@ def resample(x, num: int, axis: int = 0, *,
     if num < 1:
         raise ValueError("num must be positive")
     # the transforms run through tpufft (device); the O(num) spectrum
-    # surgery happens on the host for numpy callers / complex-free
-    # backends (the TPU stores no complex arrays)
+    # surgery happens on the host for numpy callers
     X = np.asarray(api.fft(xn, axis=ax, config=config)) if host \
         else jnp.asarray(api.fft(xn, axis=ax, config=config))
     xp = np if host else jnp
@@ -622,8 +535,6 @@ def resample(x, num: int, axis: int = 0, *,
         want = xn.dtype if np.issubdtype(np.dtype(xn.dtype),
                                          np.floating) else np.float32
         y = xp.real(y).astype(want)
-    if not is_np and host:  # device caller, host-side surgery: put back
-        y = jnp.asarray(y)
     return y
 
 
@@ -705,19 +616,9 @@ def oaconvolve(in1, in2, mode: str = "full", axes=None, *,
     else:
         FA = api.fft(blocks, n=L, config=config)
         FB = api.fft(kerm, n=L, config=config)
-    if isinstance(FA, SplitComplex):
-        fb_r, fb_i = FB.re, FB.im
-        prod = SplitComplex(
-            FA.re * fb_r[..., None, :] - FA.im * fb_i[..., None, :],
-            FA.re * fb_i[..., None, :] + FA.im * fb_r[..., None, :])
-    else:
-        FAx = xp.asarray(FA)
-        FBx = xp.asarray(FB)
-        prod = FAx * FBx[..., None, :]
+    prod = xp.asarray(FA) * xp.asarray(FB)[..., None, :]
     YB = api.irfft(prod, n=L, config=config) if real \
         else api.ifft(prod, config=config)
-    if isinstance(YB, SplitComplex):
-        YB = YB.re
     YB = xp.asarray(YB)
     # overlap-add, fully vectorized: heads lay out contiguously; the
     # (n_ker - 1)-long tails shift one block right and accumulate
@@ -763,12 +664,10 @@ def envelope(z, bp_in: tuple = (1, None), *, n_out: int | None = None,
     scipy >= 1.16): bandpass in Fourier space, analytic-signal magnitude
     out, plus the filtered-away residual. The transforms run through the
     framework's plans; the O(n) spectrum surgery happens on the host for
-    numpy callers / complex-free backends (the TPU stores no complex
-    arrays), mirroring ``resample``."""
+    numpy callers, mirroring ``resample``."""
     from . import api
 
-    is_np = not isinstance(z, jax.Array)
-    host = is_np or not backend_supports_complex()
+    host = not isinstance(z, jax.Array)
     xn = np.asarray(z) if host else z
     xp = np if host else jnp
     if not (-xn.ndim <= axis < xn.ndim):
@@ -822,20 +721,12 @@ def envelope(z, bp_in: tuple = (1, None), *, n_out: int | None = None,
         shifted = xp.roll(Z, n // 2, axis=-1)
         Zbb = shifted[..., bp.start + n // 2:bp.stop + n // 2]
     z_bb = api.ifft(Zbb, n=n_out, axis=-1, config=config)
-    if isinstance(z_bb, SplitComplex):
-        env = (z_bb.re * z_bb.re + z_bb.im * z_bb.im)
-        env = env * (fak * fak) if squared else jnp.sqrt(env) * fak
-        env = jnp.asarray(env)
-    else:
-        z_bb = (np.asarray(z_bb) if host else jnp.asarray(z_bb)) * fak
-        env = (xp.real(z_bb) ** 2 + xp.imag(z_bb) ** 2 if squared
-               else xp.abs(z_bb))
-    z_env = xp.moveaxis(env, -1, axis) if host or not isinstance(
-        env, SplitComplex) else env
+    z_bb = (np.asarray(z_bb) if host else jnp.asarray(z_bb)) * fak
+    env = (xp.real(z_bb) ** 2 + xp.imag(z_bb) ** 2 if squared
+           else xp.abs(z_bb))
+    z_env = xp.moveaxis(env, -1, axis)
 
     if residual is None:
-        if not is_np and host:
-            z_env = jnp.asarray(z_env)
         return z_env
 
     # zero the bp band; 'lowpass' keeps only frequencies below it
@@ -875,14 +766,10 @@ def envelope(z, bp_in: tuple = (1, None), *, n_out: int | None = None,
                 Z = Z.at[..., m // 2].multiply(2 if n_out < n else 0.5)
         z_res = api.irfft(Z[..., :n_out // 2 + 1], n=n_out, axis=-1,
                           config=config)
-        if isinstance(z_res, SplitComplex):
-            z_res = z_res.re
         z_res = (np.asarray(z_res) if host else jnp.asarray(z_res)) * fak
     z_res = xp.moveaxis(z_res, -1, axis)
     out = xp.stack((xp.asarray(z_env, z_res.dtype)
                     if np.issubdtype(np.dtype(z_res.dtype),
                                      np.complexfloating)
                     else z_env.astype(z_res.dtype), z_res), axis=0)
-    if not is_np and host:
-        out = jnp.asarray(out)
     return out

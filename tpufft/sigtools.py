@@ -3,8 +3,8 @@ correlation_lags, choose_conv_method.
 
 Beyond reference parity (the reference stops at raw transforms); these
 are the small scipy.signal companions users of the convolution/spectral
-layers expect. TPU-native notes: ``wiener``'s local moments run through
-this package's FFT convolution (one fused pass per moment);
+layers expect. Notes: ``wiener``'s local moments run through this
+package's FFT convolution (one convolution per moment);
 ``detrend``'s piecewise fits are tiny host/XLA least-squares per
 breakpoint segment (segment count is static); ``deconvolve`` is an
 inherently sequential polynomial long division — it runs as a host
@@ -74,7 +74,7 @@ def detrend(data, axis: int = -1, type: str = "linear", bp=0,
         else:
             # the projector A @ pinv(A) is a host f64 plan constant; the
             # two device matmuls run at HIGHEST precision (a default-
-            # precision f32 dot lowers to bf16 on the MXU and costs
+            # precision f32 dot may run in TF32 on the GPU and cost
             # ~3 decimal digits on the fitted trend)
             pinv = np.linalg.pinv(A.astype(np.float64))
             Aj = jnp.asarray(A.astype(np.float32))
@@ -124,7 +124,7 @@ def wiener(im, mysize=None, noise=None, *,
            config: PlanConfig | None = None):
     """Adaptive Wiener filter (scipy.signal.wiener-compatible): local
     mean/variance from box sums — each moment is ONE fused FFT
-    convolution through the framework's kernel path — then the
+    convolution through the framework's transforms — then the
     noise-thresholded gain."""
     from .signal import fftconvolve
 
@@ -368,8 +368,8 @@ def savgol_coeffs(window_length: int, polyorder: int, deriv: int = 0,
 # ---------------------------------------------------------------------------
 # General convolution dispatchers (scipy parity target:
 # scipy/signal/_signaltools.py convolve / convolve2d / correlate2d).
-# TPU-native note: the fft method rides this package's fused padded-plan
-# FFT convolution (signal.fftconvolve) — on device input that is the
+# Note: the fft method rides this package's padded-plan FFT convolution
+# (signal.fftconvolve) — on device input that is the
 # fast path; the direct method is an exact host computation (integer
 # inputs stay integers) via a zero-copy sliding-window view.
 

@@ -6,24 +6,20 @@ Beyond reference parity: the reference (martinvuyk/hackathon-fft) stops at
 raw transforms; this layer is the standard consumer of batched FFTs and is
 where the framework's batching story pays off.
 
-TPU-native design:
-* Framing is ONE batched gather — segments become the sublane axis of a
+Design:
+* Framing is ONE batched gather — segments become an axis of a
   (..., n_seg, nperseg) array, so the whole STFT is a single batched
-  transform through the fused MXU kernels (the r2c path is one rectangular
-  matmul per launch; zero-padding to ``nfft`` fuses into the transform via
-  the rectangular pad-DFT kernel, see execute.pad_axis_ok).
-* All complex math runs on split re/im float planes (`core.SplitComplex`)
-  — the TPU stores no complex arrays — and pointwise spectral ops
-  (conj-multiply for csd, |X|^2 for PSD) are two fused elementwise
-  expressions XLA folds into the surrounding passes.
+  transform.
+* Complex math runs on split re/im float planes (`core.SplitComplex`),
+  and pointwise spectral ops (conj-multiply for csd, |X|^2 for PSD) are
+  two elementwise expressions XLA fuses into the surrounding passes.
 * Windows / frequency / time vectors are float64 host precomputes (same
   discipline as twiddle.py); window resolution delegates to
   scipy.signal.get_window at plan time (host-only, never traced).
 
 IO contract follows the package convention: numpy in -> numpy out (f64
-callers on the x64 CPU tier keep 1e-12 parity with scipy), jax in ->
-device-resident out (complex where the backend has it, SplitComplex planes
-on TPU for complex results — never a hidden device->host transfer).
+callers under x64 keep 1e-12 parity with scipy), jax in -> device-resident
+complex out (never a hidden device->host transfer).
 """
 
 from __future__ import annotations
@@ -38,8 +34,7 @@ import numpy as np
 import functools
 
 from .config import PlanConfig
-from .core import SplitComplex, backend_supports_complex
-from .kernels import mxu_fft
+from .core import SplitComplex
 from . import api
 
 __all__ = ["get_window", "stft", "istft", "spectrogram", "periodogram",
@@ -162,12 +157,8 @@ def _pack_complex(re, im, xp, want_np: bool):
     """Planes -> the caller-facing complex flavor."""
     if xp is np:
         return re + 1j * im
-    if backend_supports_complex():
-        out = jax.lax.complex(re, im)
-        return np.asarray(out) if want_np else out
-    if want_np:
-        return np.asarray(re) + 1j * np.asarray(im)
-    return SplitComplex(re, im)
+    out = jax.lax.complex(re, im)
+    return np.asarray(out) if want_np else out
 
 
 _EXT_KINDS = ("even", "odd", "constant", "zeros", None)
@@ -233,281 +224,12 @@ def _detrend_seg(re, im, detrend, xp):
     return f(re), None if im is None else f(im)
 
 
-def _stft_matrix(win: np.ndarray, nperseg: int, nfft: int,
-                 detrend) -> np.ndarray:
-    """The whole per-segment pipeline as ONE (nperseg, m1) complex matrix:
-    detrend, window, zero-pad to nfft and DFT are all linear maps, so
-    M = P_detrend @ diag(win) @ V_nfft[:nperseg, :m1] (f64 host trig)."""
-    j = np.arange(nperseg, dtype=np.float64)
-    k = np.arange(nfft // 2 + 1, dtype=np.float64)
-    theta = (-2.0 * np.pi / nfft) * np.outer(j, k)
-    M = win[:, None] * np.exp(1j * theta)
-    if detrend == "constant":
-        M = M - M.mean(axis=0)[None, :]
-    elif detrend == "linear":
-        A = np.stack([np.ones(nperseg), j - (nperseg - 1) / 2.0], axis=1)
-        M = M - A @ (np.linalg.pinv(A) @ M)
-    return M
-
-
-@functools.lru_cache(maxsize=32)
-def _stft_fused(win_bytes: bytes, nperseg: int, step: int, nfft: int,
-                detrend_key, config: PlanConfig | None):
-    """Differentiable fused overlapped-frame STFT runner (see
-    mxu_fft.build_stft_overlap): signal (batch, n_sig) f32 ->
-    (re, im) planes (batch, nseg, m1). The VJP is the adjoint
-    frame-matmul followed by the istft-style overlap-add (plain XLA — the
-    backward pass is not a serving hot path)."""
-    win = np.frombuffer(win_bytes, np.float64)
-    M = _stft_matrix(win, nperseg, nfft, detrend_key)
-    return _stft_fused_mat(
-        np.ascontiguousarray(M.real, np.float32).tobytes(),
-        np.ascontiguousarray(M.imag, np.float32).tobytes(),
-        nperseg, M.shape[1], step, config)
-
-
-@functools.lru_cache(maxsize=8)
-def _stft_fused_mat(mr_bytes: bytes, mi_bytes: bytes, nperseg: int,
-                    m1: int, step: int, config: PlanConfig | None):
-    """Matrix-general fused STFT runner: ``mr + i mi`` is ANY
-    (nperseg, m1) linear frame->spectrum map (window, detrend, phase
-    roll, mode scaling — ShortTimeFFT folds its whole _fft_func in).
-    Signal (batch, n_sig) f32 -> (re, im) planes (batch, nseg, m1)."""
-    cfg = config or PlanConfig()
-    mr = np.frombuffer(mr_bytes, np.float32).reshape(nperseg, m1)
-    mi = np.frombuffer(mi_bytes, np.float32).reshape(nperseg, m1)
-
-    @functools.lru_cache(maxsize=8)
-    def build(nseg: int, bblk: int):
-        # same segment-group row split as the welch accumulator (see
-        # build() in _welch_fused): measured win for bblk <= 32
-        group = max(1, min(nseg, 128 // bblk)) if bblk <= 32 else 1
-        return mxu_fft.build_stft_overlap(
-            mr, mi, step, nseg, bblk, cfg.precision, bool(cfg.interpret),
-            group=group)
-
-    @jax.custom_vjp
-    def f(x):
-        nseg = 1 + (x.shape[1] - nperseg) // step
-        # block the batch at its true (8-rounded) size — an oversized
-        # block pads every output write (8x amplification at batch 64)
-        bblk = min(512, max(8, -(-x.shape[0] // 8) * 8))
-        return build(nseg, bblk)(x)
-
-    def fwd(x):
-        return f(x), (x.shape[1],)
-
-    def bwd(res, g):
-        (n_sig,) = res
-        gr, gi = g                       # (batch, nseg, m1)
-        gseg = (jnp.dot(gr, jnp.asarray(mr).T)
-                + jnp.dot(gi, jnp.asarray(mi).T))  # (batch, nseg, nperseg)
-        nseg = gseg.shape[1]
-        idx = (jnp.arange(nperseg)[None, :]
-               + step * jnp.arange(nseg)[:, None]).reshape(-1)
-        acc = jnp.zeros(gseg.shape[:1] + (n_sig,), gseg.dtype)
-        acc = acc.at[:, idx].add(gseg.reshape(gseg.shape[0], -1))
-        return (acc,)
-
-    f.defvjp(fwd, bwd)
-    return f
-
-
-@functools.lru_cache(maxsize=32)
-def _welch_fused(win_bytes: bytes, nperseg: int, step: int, nfft: int,
-                 detrend_key, cross: bool, config: PlanConfig | None):
-    """Differentiable fused Welch/CSD runner (see
-    mxu_fft.build_welch_accum): signal(s) (batch, n_sig) f32 -> the
-    SUM over segments of |Z|^2 (welch) or conj(Zx)Zy planes (csd),
-    shape (batch, m1) — per-segment spectra never touch HBM. The VJP
-    recomputes through a composed jnp reference (the backward pass is
-    not a serving hot path)."""
-    cfg = config or PlanConfig()
-    win = np.frombuffer(win_bytes, np.float64)
-    M = _stft_matrix(win, nperseg, nfft, detrend_key)
-    mr = np.ascontiguousarray(M.real, np.float32)
-    mi = np.ascontiguousarray(M.imag, np.float32)
-
-    @functools.lru_cache(maxsize=8)
-    def build(nseg: int, bblk: int):
-        # small batches underfill the MXU's 128 sublanes — stack G
-        # consecutive segments per grid step to fill the rows (and cut
-        # the overlap re-read from K x to ~1x). Measured crossover on
-        # v5e (nperseg=256): bblk 8/16/32 win 2-4x with G=128/bblk;
-        # bblk >= 64 regresses (window-concat overhead) — keep G=1.
-        group = max(1, min(nseg, 128 // bblk)) if bblk <= 32 else 1
-        return mxu_fft.build_welch_accum(
-            mr, mi, step, nseg, bblk, cfg.precision, bool(cfg.interpret),
-            cross, group=group)
-
-    def composed(*xs):
-        # jnp reference used only for the VJP: frame -> matmul -> accum
-        nseg = 1 + (xs[0].shape[1] - nperseg) // step
-        idx = (jnp.arange(nperseg)[None, :]
-               + step * jnp.arange(nseg)[:, None])
-
-        def spec(v):
-            seg = v[:, idx]                        # (batch, nseg, nperseg)
-            return (jnp.dot(seg, jnp.asarray(mr)),
-                    jnp.dot(seg, jnp.asarray(mi)))
-
-        xr, xi = spec(xs[0])
-        if cross:
-            yr, yi = spec(xs[1])
-            return (jnp.sum(xr * yr + xi * yi, axis=1),
-                    jnp.sum(xr * yi - xi * yr, axis=1))
-        return jnp.sum(xr * xr + xi * xi, axis=1)
-
-    @jax.custom_vjp
-    def f(*xs):
-        nseg = 1 + (xs[0].shape[1] - nperseg) // step
-        bblk = min(512, max(8, -(-xs[0].shape[0] // 8) * 8))
-        return build(nseg, bblk)(*xs)
-
-    def fwd(*xs):
-        return f(*xs), xs
-
-    def bwd(xs, g):
-        return jax.vjp(composed, *xs)[1](g)
-
-    f.defvjp(fwd, bwd)
-    return f
-
-
-def _welch_fused_ok(xp, xim, yim, onesided, detrend, nperseg: int,
-                    step: int, nfft: int, boundary, padded,
-                    cfg: PlanConfig | None) -> bool:
-    from .execute import _is_tpu_backend
-
-    cfg = cfg or PlanConfig()
-    if xp is np or xim is not None or yim is not None or not onesided:
-        return False
-    if boundary is not None or padded:
-        return False
-    if detrend not in (False, None, "constant", "linear"):
-        return False
-    if cfg.backend == "xla" or not (cfg.interpret or _is_tpu_backend()):
-        return False
-    return mxu_fft.stft_overlap_supported(nperseg, step, nfft,
-                                          jnp.float32, cfg)
-
-
-def _istft_matrix(win: np.ndarray, nperseg: int, nfft: int,
-                  unscale: float) -> np.ndarray:
-    """The whole per-segment synthesis pipeline as ONE (m1, nperseg)
-    complex matrix: x_seg = Re(Z @ A) where A folds the inverse onesided
-    DFT (with Hermitian doubling coefficients), the truncation to
-    nperseg, the synthesis window and the stft unscale (f64 host trig).
-    The kernel computes x = Zr @ A.real + Zi @ A.imag
-    = (c/nfft)(Re(Z) cos - Im(Z) sin) win unscale — the real part of the
-    inverse transform."""
-    m1 = nfft // 2 + 1
-    k = np.arange(m1, dtype=np.float64)
-    t = np.arange(nperseg, dtype=np.float64)
-    c = np.full(m1, 2.0)
-    c[0] = 1.0
-    if nfft % 2 == 0:
-        c[-1] = 1.0
-    theta = (2.0 * np.pi / nfft) * np.outer(k, t)
-    scale = (c / nfft)[:, None] * (win[None, :] * unscale)
-    return scale * np.cos(theta) - 1j * (scale * np.sin(theta))
-
-
-@functools.lru_cache(maxsize=32)
-def _istft_fused(win_bytes: bytes, nperseg: int, step: int, nfft: int,
-                 unscale: float, config: PlanConfig | None):
-    """Differentiable fused inverse-STFT runner (see
-    mxu_fft.build_istft_ola): segment-major spectrum planes
-    (nseg, batch, m1) f32 -> (batch, n_out) un-normalized overlap-add.
-    The VJP is the adjoint framing matmul (plain XLA)."""
-    win = np.frombuffer(win_bytes, np.float64)
-    A = _istft_matrix(win, nperseg, nfft, unscale)
-    return _istft_fused_mat(
-        np.ascontiguousarray(A.real, np.float32).tobytes(),
-        np.ascontiguousarray(A.imag, np.float32).tobytes(),
-        A.shape[0], nperseg, step, config)
-
-
-@functools.lru_cache(maxsize=8)
-def _istft_fused_mat(ar_bytes: bytes, ai_bytes: bytes, m1: int,
-                     nperseg: int, step: int, config: PlanConfig | None):
-    """Matrix-general fused inverse-STFT runner: the kernel computes
-    ``x = Zr @ ar + Zi @ ai`` per segment and overlap-adds, so
-    ``ar/ai`` may fold ANY (m1, nperseg) linear synthesis map (inverse
-    DFT, dual window, phase roll, mode unscaling)."""
-    cfg = config or PlanConfig()
-    ar = np.frombuffer(ar_bytes, np.float32).reshape(m1, nperseg)
-    ai = np.frombuffer(ai_bytes, np.float32).reshape(m1, nperseg)
-
-    @functools.lru_cache(maxsize=8)
-    def build(nseg: int, bblk: int):
-        # same segment-group row split as the welch/stft kernels:
-        # small batches stack G chunks' segments per grid step
-        group = max(1, min(nseg, 128 // bblk)) if bblk <= 32 else 1
-        return mxu_fft.build_istft_ola(
-            ar, ai, step, nseg, bblk, cfg.precision, bool(cfg.interpret),
-            group=group)
-
-    @jax.custom_vjp
-    def f(zr, zi):
-        nseg = zr.shape[0]
-        bblk = min(512, max(8, -(-zr.shape[1] // 8) * 8))
-        return build(nseg, bblk)(zr, zi)
-
-    def fwd(zr, zi):
-        return f(zr, zi), (zr.shape[0],)
-
-    def bwd(res, g):
-        (nseg,) = res                       # g: (batch, n_out)
-        idx = (jnp.arange(nperseg)[None, :]
-               + step * jnp.arange(nseg)[:, None])  # (nseg, nperseg)
-        frames = g[:, idx]                  # (batch, nseg, nperseg)
-        gr = jnp.einsum("bst,mt->sbm", frames, jnp.asarray(ar))
-        gi = jnp.einsum("bst,mt->sbm", frames, jnp.asarray(ai))
-        return gr, gi
-
-    f.defvjp(fwd, bwd)
-    return f
-
-
-def _istft_fused_ok(xp, onesided, n_freq: int, nperseg: int, step: int,
-                    nfft: int, cfg: PlanConfig | None) -> bool:
-    from .execute import _is_tpu_backend
-    from .kernels.mxu_fft import istft_ola_supported
-
-    cfg = cfg or PlanConfig()
-    if xp is np or not onesided or n_freq != nfft // 2 + 1:
-        return False
-    if cfg.backend == "xla" or not (cfg.interpret or _is_tpu_backend()):
-        return False
-    return istft_ola_supported(nperseg, step, nfft, cfg)
-
-
-def _stft_fused_ok(xp, im, onesided, detrend, dtype, nperseg: int,
-                   step: int, nfft: int, cfg: PlanConfig | None) -> bool:
-    from .execute import _is_tpu_backend
-
-    cfg = cfg or PlanConfig()
-    if xp is np or im is not None or not onesided:
-        return False
-    if detrend not in (False, None, "constant", "linear"):
-        return False
-    if jnp.dtype(dtype) not in (jnp.dtype(jnp.float32),
-                                jnp.dtype(jnp.bfloat16)):
-        return False
-    if cfg.backend == "xla" or not (cfg.interpret or _is_tpu_backend()):
-        return False
-    return mxu_fft.stft_overlap_supported(nperseg, step, nfft,
-                                          jnp.float32, cfg)
-
-
 def _transform_segments(re, im, nfft: int, onesided: bool,
                         config: PlanConfig | None, xp):
     """Batched per-segment DFT of the last axis -> spectrum planes.
 
-    One call = one batched kernel launch over every segment of every
-    batch row; the zero-pad to nfft fuses into the rectangular pad-DFT
-    when the kernel path serves it."""
+    One call = one batched transform over every segment of every batch
+    row."""
     if onesided:
         assert im is None
         X = api.rfft(re, n=nfft, axis=-1, config=config)
@@ -522,15 +244,10 @@ def _transform_segments(re, im, nfft: int, onesided: bool,
 
 def _spectral_helper(x, y, fs, window, nperseg, noverlap, nfft, detrend,
                      return_onesided, scaling, axis, mode, boundary,
-                     padded, config, reduce_mean=False):
+                     padded, config):
     """The shared stft/psd engine (scipy._spectral_helper semantics,
     split-plane execution). Returns (freqs, t, (re, im|None), xp,
-    want_np, onesided).
-
-    ``reduce_mean`` (psd mode): the caller will mean over segments —
-    when the fused Welch accumulator serves the shape, the reduction
-    happens IN the kernel and the result comes back with a
-    single-segment time axis (csd's reducer then strips it)."""
+    want_np, onesided)."""
     if boundary not in _EXT_KINDS:
         raise ValueError(
             f"Unknown boundary option '{boundary}', must be one of "
@@ -610,24 +327,6 @@ def _spectral_helper(x, y, fs, window, nperseg, noverlap, nfft, detrend,
                 pad = [(0, 0)] * (re.ndim - 1) + [(0, nadd)]
                 re = xp.pad(re, pad)
                 im = None if im is None else xp.pad(im, pad)
-        if _stft_fused_ok(xp, im, onesided, detrend, re.dtype, nperseg,
-                          step, nfft, config):
-            # fused overlapped-frame kernel: frames stream straight from
-            # the signal in HBM; detrend/window/pad/DFT are one matmul —
-            # no gather pass, no materialized (..., nseg, nperseg) tensor
-            n_sig = re.shape[-1]
-            nseg = 1 + (n_sig - nperseg) // step
-            used = nperseg + (nseg - 1) * step
-            lead = re.shape[:-1]
-            flat = math.prod(lead) if lead else 1
-            x2 = re[..., :used].reshape(flat, used).astype(jnp.float32)
-            fk = _stft_fused(win.tobytes(), nperseg, step, nfft,
-                             detrend if not callable(detrend) else None,
-                             config)
-            Xr, Xi = fk(x2)
-            m1 = Xr.shape[-1]
-            return (Xr.reshape(lead + (nseg, m1)),
-                    Xi.reshape(lead + (nseg, m1)))
         re = _frame(re, nperseg, step, xp)
         im = None if im is None else _frame(im, nperseg, step, xp)
         re, im = _detrend_seg(re, im, detrend, xp)
@@ -640,49 +339,23 @@ def _spectral_helper(x, y, fs, window, nperseg, noverlap, nfft, detrend,
         return _transform_segments(re, im, nfft, onesided and im is None,
                                    config, xp)
 
-    if (mode == "psd" and reduce_mean
-            and _welch_fused_ok(xp, xim, yim, onesided, detrend, nperseg,
-                                step, nfft, boundary, padded, config)
-            and xre.shape[-1] >= nperseg):
-        # fused Welch/CSD accumulator: per-segment spectra never touch
-        # HBM (mxu_fft.build_welch_accum); mean+scale are scalar passes
-        # on the tiny (batch, m1) result
-        n_sig = xre.shape[-1]
-        nseg_f = 1 + (n_sig - nperseg) // step
-        used = nperseg + (nseg_f - 1) * step
-        lead = xre.shape[:-1]
-        flat = math.prod(lead) if lead else 1
-        dkey = detrend if not callable(detrend) else None
-        fk = _welch_fused(win.tobytes(), nperseg, step, nfft, dkey,
-                          not same_data, config)
-        x2 = xre[..., :used].reshape(flat, used).astype(jnp.float32)
-        if same_data:
-            Pr, Pi = fk(x2), None
-        else:
-            y2 = yre[..., :used].reshape(flat, used).astype(jnp.float32)
-            Pr, Pi = fk(x2, y2)
-        k = float(scale) / nseg_f
-        m1 = Pr.shape[-1]
-        Rr = (Pr * k).reshape(lead + (1, m1))
-        Ri = None if Pi is None else (Pi * k).reshape(lead + (1, m1))
+    Xr, Xi = run(xre, xim)
+    if same_data:
+        Yr, Yi = Xr, Xi
     else:
-        Xr, Xi = run(xre, xim)
-        if same_data:
-            Yr, Yi = Xr, Xi
-        else:
-            Yr, Yi = run(yre, yim)
+        Yr, Yi = run(yre, yim)
 
-        if mode == "stft":
-            Rr, Ri = Xr * scale, (None if Xi is None else Xi * scale)
-            if Ri is None:
-                Ri = xp.zeros_like(Rr)
-        else:  # psd: conj(X) * Y
-            if Xi is None:
-                Xi = xp.zeros_like(Xr)
-            if Yi is None:
-                Yi = xp.zeros_like(Yr)
-            Rr = (Xr * Yr + Xi * Yi) * scale
-            Ri = None if same_data else (Xr * Yi - Xi * Yr) * scale
+    if mode == "stft":
+        Rr, Ri = Xr * scale, (None if Xi is None else Xi * scale)
+        if Ri is None:
+            Ri = xp.zeros_like(Rr)
+    else:  # psd: conj(X) * Y
+        if Xi is None:
+            Xi = xp.zeros_like(Xr)
+        if Yi is None:
+            Yi = xp.zeros_like(Yr)
+        Rr = (Xr * Yr + Xi * Yi) * scale
+        Ri = None if same_data else (Xr * Yi - Xi * Yr) * scale
     if mode != "stft" and onesided:
         # double the interior bins (the energy of the dropped
         # conjugate half); DC and (even-nfft) Nyquist stay single
@@ -728,7 +401,7 @@ def stft(x, fs: float = 1.0, window="hann", nperseg: int | None = 256,
          *, config: PlanConfig | None = None):
     """Short-time Fourier transform (scipy.signal.stft-compatible):
     returns (f, t, Zxx) with the frequency axis at ``axis`` and segment
-    times trailing. The whole STFT is ONE batched kernel transform."""
+    times trailing. The whole STFT is ONE batched transform."""
     if scaling == "psd":
         sc = "density"
     elif scaling == "spectrum":
@@ -751,7 +424,7 @@ def istft(Zxx, fs: float = 1.0, window="hann", nperseg: int | None = None,
           config: PlanConfig | None = None):
     """Inverse STFT via windowed overlap-add
     (scipy.signal.istft-compatible): returns (t, x). The batched inverse
-    transform is one kernel launch; the overlap-add is one scatter-add."""
+    transform is one batched call; the overlap-add is one scatter-add."""
     xp = jnp if _is_jax(Zxx) else np
     want_np = xp is np
     Zr, Zi = _split(Zxx, xp)
@@ -812,30 +485,12 @@ def istft(Zxx, fs: float = 1.0, window="hann", nperseg: int | None = None,
     Zi = xp.moveaxis(Zi, (freq_axis, time_axis), (-1, -2))
     nseg = Zr.shape[-2]
 
-    if _istft_fused_ok(xp, input_onesided, n_freq, nperseg, step, nfft,
-                       config):
-        # fused overlap-add kernel: inverse transform, window and OLA in
-        # one pass — no scatter-add (see mxu_fft.build_istft_ola); the
-        # time-varying window-sum normalization stays below
-        lead = Zr.shape[:-2]
-        flat = math.prod(lead) if lead else 1
-        zsr = jnp.transpose(Zr.reshape(flat, nseg, n_freq),
-                            (1, 0, 2)).astype(jnp.float32)
-        zsi = jnp.transpose(Zi.reshape(flat, nseg, n_freq),
-                            (1, 0, 2)).astype(jnp.float32)
-        fk = _istft_fused(win.tobytes(), nperseg, step, nfft,
-                          float(unscale), config)
-        xout = fk(zsr, zsi).reshape(lead + (-1,))
-        xout_i = None
-        n_out = nperseg + (nseg - 1) * step
-        xsub = None
-    elif input_onesided:
+    if input_onesided:
         if want_np:
             xsub = api.irfft(Zr + 1j * Zi, n=nfft, axis=-1, config=config)
         else:
-            out = api.irfft(SplitComplex(Zr, Zi), n=nfft, axis=-1,
-                            config=config)
-            xsub = out.re if isinstance(out, SplitComplex) else out
+            xsub = api.irfft(SplitComplex(Zr, Zi), n=nfft, axis=-1,
+                             config=config).re
         xsub_i = None
     else:
         if want_np:
@@ -846,31 +501,30 @@ def istft(Zxx, fs: float = 1.0, window="hann", nperseg: int | None = None,
             out = api.ifft(SplitComplex(Zr, Zi), n=nfft, axis=-1,
                            config=config)
             xsub, xsub_i = out.re, out.im
-    if xsub is not None:
-        xsub = xsub[..., :nperseg] * unscale
-        if xsub_i is not None:
-            xsub_i = xsub_i[..., :nperseg] * unscale
+    xsub = xsub[..., :nperseg] * unscale
+    if xsub_i is not None:
+        xsub_i = xsub_i[..., :nperseg] * unscale
 
-        n_out = nperseg + (nseg - 1) * step
-        wj = win if xp is np else xp.asarray(win.astype(np.float32))
-        lead = xsub.shape[:-2]
+    n_out = nperseg + (nseg - 1) * step
+    wj = win if xp is np else xp.asarray(win.astype(np.float32))
+    lead = xsub.shape[:-2]
 
-        def ola(seg):
-            seg = seg * (wj.astype(seg.dtype) if xp is np else wj)
-            if xp is np:
-                out = np.zeros(lead + (n_out,), seg.dtype)
-                idx = (np.arange(nperseg)[None, :]
-                       + step * np.arange(nseg)[:, None])
-                np.add.at(out, (..., idx.reshape(-1)),
-                          seg.reshape(lead + (-1,)))
-                return out
-            idx = (jnp.arange(nperseg)[None, :]
-                   + step * jnp.arange(nseg)[:, None]).reshape(-1)
-            out = jnp.zeros(lead + (n_out,), seg.dtype)
-            return out.at[..., idx].add(seg.reshape(lead + (-1,)))
+    def ola(seg):
+        seg = seg * (wj.astype(seg.dtype) if xp is np else wj)
+        if xp is np:
+            out = np.zeros(lead + (n_out,), seg.dtype)
+            idx = (np.arange(nperseg)[None, :]
+                   + step * np.arange(nseg)[:, None])
+            np.add.at(out, (..., idx.reshape(-1)),
+                      seg.reshape(lead + (-1,)))
+            return out
+        idx = (jnp.arange(nperseg)[None, :]
+               + step * jnp.arange(nseg)[:, None]).reshape(-1)
+        out = jnp.zeros(lead + (n_out,), seg.dtype)
+        return out.at[..., idx].add(seg.reshape(lead + (-1,)))
 
-        xout = ola(xsub)
-        xout_i = None if xsub_i is None else ola(xsub_i)
+    xout = ola(xsub)
+    xout_i = None if xsub_i is None else ola(xsub_i)
     normw = np.zeros(n_out)
     idxh = (np.arange(nperseg)[None, :]
             + step * np.arange(nseg)[:, None]).reshape(-1)
@@ -962,8 +616,7 @@ def csd(x, y, fs: float = 1.0, window="hann", nperseg: int | None = None,
     same = y is x
     freqs, _, (Rr, Ri), xp, want_np, _ = _spectral_helper(
         x, y, fs, window, nperseg, noverlap, nfft, detrend,
-        return_onesided, scaling, axis, "psd", None, False, config,
-        reduce_mean=(average == "mean"))
+        return_onesided, scaling, axis, "psd", None, False, config)
     # average over the trailing (segment-time) axis
     if Rr.ndim >= 2 and Rr.shape[-1] > 1:
         if average == "median":
@@ -1070,23 +723,28 @@ _NOVALUE = object()
 def _ls_core(xv, yv, wv, freqs, floating_mean: bool, mode: str, xp):
     """Generalized Lomb-Scargle (Zechmeister & Kuerster 2009) sums.
 
-    One (N, F) trig tile + weighted matvecs — on device these are the
-    MXU/VPU shapes the chip wants; the tau rotation reuses the first trig
-    tile (cos(t - tau) via the angle-difference identity) instead of a
-    second transcendental pass.  Returns (a, b, tau, pgram_power, YY).
+    One (N, F) trig tile + weighted matvecs; the tau rotation reuses the
+    first trig tile (cos(t - tau) via the angle-difference identity)
+    instead of a second transcendental pass.  Returns (a, b, tau,
+    pgram_power, YY).
     """
+    def mv(v, m):
+        if xp is np:
+            return v @ m
+        return jnp.matmul(v, m, precision=jax.lax.Precision.HIGHEST)
+
     w = wv / xp.sum(wv)
     wy = w * yv
     theta = xv[:, None] * freqs[None, :]          # (N, F)
     cos = xp.cos(theta)
     sin = xp.sin(theta)
-    CC = w @ (cos * cos)
-    CS = w @ (cos * sin)
+    CC = mv(w, cos * cos)
+    CS = mv(w, cos * sin)
     SS = 1.0 - CC
     Y = xp.sum(wy)
     if floating_mean:
-        C = w @ cos
-        S = w @ sin
+        C = mv(w, cos)
+        S = mv(w, sin)
         CC = CC - C * C
         SS = SS - S * S
         CS = CS - C * S
@@ -1094,13 +752,13 @@ def _ls_core(xv, yv, wv, freqs, floating_mean: bool, mode: str, xp):
     ct, st = xp.cos(tau), xp.sin(tau)
     cos_t = cos * ct[None, :] + sin * st[None, :]  # cos(theta - tau)
     sin_t = sin * ct[None, :] - cos * st[None, :]
-    YC = wy @ cos_t
-    YS = wy @ sin_t
-    CC = w @ (cos_t * cos_t)
+    YC = mv(wy, cos_t)
+    YS = mv(wy, sin_t)
+    CC = mv(w, cos_t * cos_t)
     SS = 1.0 - CC
     if floating_mean:
-        C = w @ cos_t
-        S = w @ sin_t
+        C = mv(w, cos_t)
+        S = mv(w, sin_t)
         YC = YC - Y * C
         YS = YS - Y * S
         CC = CC - C * C
@@ -1126,7 +784,7 @@ def _ls_device(xv, yv, wv, freqs, floating_mean: bool, mode: str):
         return power * (xv.shape[0] / 4.0)
     if mode == "normalize":
         return power * (0.5 / YY)
-    # amplitude: (a + ib) e^{i tau}, kept as planes (TPU has no complex)
+    # amplitude: (a + ib) e^{i tau}, as planes
     ct, st = jnp.cos(tau), jnp.sin(tau)
     return a * ct - b * st, a * st + b * ct
 
@@ -1139,9 +797,8 @@ def lombscargle(x, y, freqs, *, precenter=_NOVALUE, normalize=False,
     output modes).
 
     numpy in -> host f64 numpy out (scipy-exact); jax in -> the whole
-    O(N*F) trig tile and its weighted reductions run jitted on device
-    (float32 on TPU), returning a device array — 'amplitude' returns
-    SplitComplex planes on complex-free backends.  No counterpart in the
+    O(N*F) trig tile and its weighted reductions run jitted on device,
+    returning a device array.  No counterpart in the
     reference (martinvuyk/hackathon-fft); parity target is
     scipy/signal/_spectral_py.py:lombscargle.
     """
@@ -1192,9 +849,7 @@ def lombscargle(x, y, freqs, *, precenter=_NOVALUE, normalize=False,
         if mode != "amplitude":
             return out
         re, im = out
-        if backend_supports_complex():
-            return re + 1j * im
-        return SplitComplex(re, im)
+        return re + 1j * im
 
     a, b, tau, power, YY = _ls_core(xv, yv, wv, fv, bool(floating_mean),
                                     mode, np)

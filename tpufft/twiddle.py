@@ -1,6 +1,6 @@
 """Twiddle-factor tables and radix DFT matrices.
 
-TPU-native analog of the reference's twiddle machinery
+The analog of the reference's twiddle machinery
 (``fft/fft/_utils.mojo:63-123`` ``_get_twiddle_factor[s][_inline]`` and the
 phasor-specialized complex ops at ``_utils.mojo:291-372``): all tables are
 precomputed on the host in NumPy float64 — exactly like the reference's

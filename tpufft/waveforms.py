@@ -5,7 +5,7 @@ at raw transforms); scipy parity targets are scipy/signal/_waveforms.py
 (chirp, sweep_poly, gausspulse, square, sawtooth, unit_impulse) and
 scipy/signal/_max_len_seq.py (max_len_seq).
 
-TPU-native notes: the samplers (`chirp`, `sweep_poly`, `gausspulse`,
+Notes: the samplers (`chirp`, `sweep_poly`, `gausspulse`,
 `square`, `sawtooth`) are xp-generic — a ``jax.Array`` time vector
 returns a ``jax.Array`` computed with jnp (traceable, differentiable,
 usable inside ``jax.jit``); numpy input stays on the host in float64.
